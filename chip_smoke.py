@@ -27,6 +27,22 @@ Phases, in order; any failure raises and the script exits nonzero:
                same way.
   5. http    — RecApiServer on a free port answers concurrent
                POST /api/v1/recommend through the MicroBatcher.
+  6. train   — the headline trained by the port's scanned trainer at full
+               width (10M × 64, batch 65,536, adam + table adagrad, the
+               JAX bench's compact_cap rule) on 16 × 65,536 rows of the
+               JAX bench workload (planted parity, zipf s = 1.05, noisy
+               labels): 3 epochs with compact_impl="xla" and 1 epoch from
+               the same start with "kernel" (the main path: launch counts
+               reset just before, read just after). K1 (the forward
+               gather and the row update's read), K2, K2b, K4 and K9 are
+               held against their plain versions on the first step's own
+               inputs, with controls that must exceed each limit; the
+               xla and kernel runs' first-epoch losses agree, and wrong
+               compactions (controls) move that loss past the limit; a small
+               f32 model trained on the card is held against the port on
+               the CPU; a profiled step gives the device-time breakdown;
+               the trained result serves through DeviceScorer with the
+               phase-3 score check and controls.
 Then it prints the card line, the `kernels` JSON line and, last,
 {"ok": true, "device": {...}}.
 
@@ -58,7 +74,7 @@ F32_FLOPS_PER_S = 67e12
 #  f32: both sum in f32, in different orders (warp-shuffle trees vs
 #       torch reductions) — a few f32 ulps;
 #  bf16 output: both round an f32 value that agrees to a few f32 ulps,
-#       so the outputs agree to one bf16 ulp (2^-8 relative).
+#       so the outputs agree to one bf16 ulp (at most 2^-7 relative).
 TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-6, 8e-3)}
 # scores (probabilities) through the kernels vs the plain path at bf16:
 # pooled rows differ by at most one bf16 ulp, and f32 accumulation-order
@@ -70,6 +86,40 @@ SCORE_ATOL_BF16 = 1e-4
 # the small f32 model on the card vs the port on the CPU: f32 sums in
 # other orders (cuBLAS vs the CPU BLAS), TF32 off
 SCORE_ATOL_F32 = 1e-5
+# the trained headline's scores, kernels vs plain path: the same one-ulp
+# pooled-row differences as SCORE_ATOL_BF16, but trained rows and weights
+# are larger, so a flipped bf16 rounding moves a score further (8.4e-5 on
+# an H100, PERF.md); its controls read 3.7e-3 and more
+SCORE_ATOL_TRAINED = 3e-4
+# training phase: the JAX bench's depth except rows (bench.py:139-160)
+TRAIN_BATCH = 65_536
+TRAIN_ROWS = 16 * TRAIN_BATCH
+TRAIN_EPOCHS = 3
+TABLE_LR = 2.0
+# K2b vs its plain version (bf16 d_behaviors / d_item): both round an f32
+# value that agrees to a few f32 ulps, so one bf16 ulp (rtol 2^-7); where
+# the three terms of a gradient cancel, the f32 values themselves differ
+# by f32 rounding of the terms, so an atol of 1e-6 of the largest
+# gradient. d_att0 sums 65,536 rows in another order (fixed partials vs
+# torch.sum) with cancellation between rows: rtol 1e-3 plus 1e-4 of the
+# largest entry.
+GRAD_RTOL_BF16 = 2.0 ** -7
+GRAD_ATOL_REL = 1e-6
+ATT0_RTOL, ATT0_ATOL_REL = 1e-3, 1e-4
+# K9 vs its plain version: the same f32 rows summed in another order
+# (tiles + carries vs index_add_), so each run sum lies within 1e-5 of the
+# run's sum of |g| (~168 f32 ulps of it: runs reach ~10^5 rows)
+RUNSUM_RTOL = 1e-5
+# xla vs kernel compaction, first-epoch mean loss: the run sums differ by
+# f32 rounding, which flips a few bf16 roundings of the tower in later
+# steps of the epoch (2.59e-7 relative on an H100, PERF.md; the path is
+# deterministic); compaction_controls() shows in every run that a wrong
+# compaction moves it past this limit
+LOSS_RTOL_IMPL = 1e-5
+# small f32 trainer, card vs CPU (the JAX package's own trainer parity
+# tolerances): loss curves rtol 1e-5, tables rtol 1e-4 / atol 1e-5
+TRAJ_LOSS_RTOL = 1e-5
+TRAJ_TABLE_RTOL, TRAJ_TABLE_ATOL = 1e-4, 1e-5
 
 
 def require(cond: bool, what: str) -> None:
@@ -309,10 +359,11 @@ def check_scores(outs, want, atol, what):
     return err
 
 
-def check_controls(torch, scorer, got, prof, bids, ctx, cands, what):
+def check_controls(torch, scorer, got, prof, bids, ctx, cands, what,
+                   limit=SCORE_ATOL_BF16):
     """Wrong inputs through the plain path must move some score of `got`
-    by more than SCORE_ATOL_BF16, or the score check could not catch a
-    wrong kernel: behavior rows shifted by one id (a wrong K1 row), no
+    by more than `limit`, or the score check could not catch a wrong
+    kernel: behavior rows shifted by one id (a wrong K1 row), no
     behaviors (every gate 0: K2's output zeroed), candidate rows shifted
     by one id. Returns the readings."""
     V = scorer.model.item_vocab
@@ -328,11 +379,11 @@ def check_controls(torch, scorer, got, prof, bids, ctx, cands, what):
         want = plain_scores(torch, scorer, prof, b, ctx, c)
         readings[name] = max(float(np.abs(o - w).max())
                              for o, w in zip(got, want))
-        require(readings[name] > SCORE_ATOL_BF16,
+        require(readings[name] > limit,
                 f"{what} control '{name}': max |score diff| "
                 f"{readings[name]:.3g} is inside the limit "
-                f"{SCORE_ATOL_BF16}, which therefore cannot catch it")
-    log(f"[serve] {what} controls (must exceed {SCORE_ATOL_BF16}): "
+                f"{limit}, which therefore cannot catch it")
+    log(f"[serve] {what} controls (must exceed {limit}): "
         + ", ".join(f"{k} {v:.3g}" for k, v in readings.items()))
     return readings
 
@@ -508,6 +559,591 @@ def http_check(scorer, reqs):
         f"scores match the scorer (max diff {err:.3g})")
 
 
+# ------------------------------------------------------------- phase 6 --
+def make_workload(n, vocab, t, u, c, seed=0):
+    """The JAX package's bench workload (bench.py:44-109, copied: bench.py
+    imports the JAX package), with its defaults zipf=True, noisy=True.
+    Planted parity: label = item parity == the user's taste parity, which
+    85% of the behaviors carry; zipf (s = 1.05) popularity with hot ranks
+    scattered over the id space by a multiplicative hash; 15% of labels
+    flip and hot items lean positive."""
+    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
+
+    rng = np.random.default_rng(seed)
+    uids = rng.integers(0, max(n // 256, 1), n).astype(np.int32)
+    user_taste = rng.integers(0, 2, max(n // 256, 1))
+    taste = user_taste[uids]
+    half = vocab // 2
+    prime = 2_654_435_761            # Knuth multiplicative hash, odd
+
+    def draw(shape):
+        r = _zipf_ranks(rng, shape, half)
+        return (r * prime) % half, r
+
+    b_slot, _ = draw((n, t))
+    b_alt, _ = draw((n, t))
+    bids = np.where(
+        rng.random((n, t)) < 0.85,
+        b_slot * 2 + taste[:, None],
+        b_alt * 2 + rng.integers(0, 2, (n, t))).astype(np.int32)
+    i_slot, i_rank = draw((n,))
+    iids = (i_slot * 2 + rng.integers(0, 2, n)).astype(np.int32)
+    parity = ((iids % 2) == taste)
+    hot = i_rank < max(half // 10, 1)
+    p_pos = np.where(parity, 0.85, 0.15) + np.where(hot, 0.10, -0.01)
+    y = (rng.random(n) < p_pos.clip(0.02, 0.98)).astype(np.float32)
+    return SparseSample(
+        user_profile=rng.random((n, u), dtype=np.float32),
+        behavior_ids=bids, item_ids=iids,
+        ctx=rng.random((n, c), dtype=np.float32), labels=y)
+
+
+def bench_compact_cap(sample, bs: int) -> int:
+    """bench.py's rule: the first batch's unique ids + 15%, rounded up to
+    a multiple of 1024."""
+    b0 = np.concatenate([sample.behavior_ids[:bs].ravel(),
+                         sample.item_ids[:bs]])
+    uniq0 = len(np.unique(b0[b0 >= 0]))
+    return -(-int(uniq0 * 1.15) // 1024) * 1024
+
+
+def within(torch, got, want, rtol, atol):
+    """(entries outside |got − want| <= atol + rtol·|want|, max error)."""
+    diff = (got.float() - want.float()).abs()
+    bad = int((diff > atol + rtol * want.float().abs()).sum())
+    return bad, float(diff.max()) if diff.numel() else 0.0
+
+
+def first_step(torch, start, sample, cfg, topt, dev):
+    """What each kernel of the training path gets in the main path's first
+    step, rebuilt with the trainer's own functions from the same start:
+    the batch of the first epoch's first indices, K1's ids and the rows it
+    gathered, K2's output and K2b's inputs (the gathered rows, att0, mask
+    and the tower's gradient of the pooled rows), K9's sorted stream, and
+    K4's targets and new rows."""
+    from goctr_tpu_torch.ops.kernels.din_attention import din_attention_pool
+    from goctr_tpu_torch.ops.kernels.row_optimizer import (
+        pack_table, updated_rows)
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+
+    V, D = start.model.item_vocab, start.model.emb_dim
+    bs = cfg.batch_size
+    gen = sc.trainer_generator(cfg, 0, dev)
+    idx = sc.epoch_order(gen, sample.rows, cfg.shuffle, dev)[:bs].cpu()
+    idx = idx.numpy()
+
+    def col(a):
+        return torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev)
+
+    prof, bids, iids = col(sample.user_profile), col(sample.behavior_ids), \
+        col(sample.item_ids)
+    ctx, y = col(sample.ctx), col(sample.labels)
+    w = torch.ones(bs, device=dev)
+    model = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(start.model.state_dict())
+    table = pack_table(start.table, torch.zeros(V, device=dev))
+    T = bids.shape[1]
+    with torch.enable_grad():
+        emb = sc.gather_batch_rows(model, table, bids, iids,
+                                   False).requires_grad_()
+        beh = emb.detach()[:bs * T].view(bs, T, D)
+        item = emb.detach()[bs * T:]
+        mask = (bids >= 0).float()
+        att0 = model.att0.detach()
+        pooled = din_attention_pool(beh, item, att0, mask).requires_grad_()
+        logits = model._tower(prof, pooled, item, ctx, train=True)
+        dout = torch.autograd.grad(sc.bce_loss(logits, y, w), pooled)[0]
+        loss = sc.batch_loss(model, emb, prof, bids, ctx, y, w)
+        g_emb = torch.autograd.grad(loss, emb)[0]
+    ids_flat = torch.cat([bids.reshape(-1), iids])
+    g_flat = g_emb.float()
+    s_ids, g_s = sc.sort_updates(ids_flat, g_flat, V)
+    capr = sc.compact_slots(topt.compact_cap, s_ids.shape[0])
+    tgt, g_packed, _ = sc.update_stream(ids_flat, g_flat, topt, V)
+    new = updated_rows(table, tgt, g_packed, topt.lr, D, topt.kind,
+                       topt.eps)
+    return {"pool": (dout.contiguous(), beh, item, att0, mask),
+            "gather_ids": ids_flat.clamp_min(0), "emb": emb.detach(),
+            "pooled": pooled.detach(),
+            "s_ids": s_ids, "g_s": g_s, "capr": capr, "table": table,
+            "tgt": tgt, "new": new, "V": V, "D": D}
+
+
+def check_train_gather(torch, step):
+    """K1 against its plain version at both of the training path's calls
+    on the first step's inputs, bit-exact, each with a control (ids
+    shifted by one) that must change some row: the forward gather of the
+    batch's ids from the packed [V, 128] table to bf16 (the rows the
+    trainer took, `emb`), and the row update's f32 read of all 128 lanes
+    of its target slots (`updated_rows`). Returns (max error, controls)."""
+    from goctr_tpu_torch.ops.kernels import row_gather as k1
+    from goctr_tpu_torch.ops.kernels.row_optimizer import LANES
+
+    V, D, table = step["V"], step["D"], step["table"]
+    read_ids = step["tgt"].clamp(max=V - 1)        # as updated_rows reads
+    calls = (("forward", step["gather_ids"], D, torch.bfloat16, step["emb"]),
+             ("row-update read", read_ids, LANES, torch.float32, None))
+    err, ctl = 0.0, {}
+    for what, ids, dim, dt, got in calls:
+        if got is None:
+            got = k1.gather_rows(table, ids, dim=dim, out_dtype=dt)
+        want = k1.gather_rows_plain(table, ids, dim=dim, out_dtype=dt)
+        torch.cuda.synchronize()
+        require(got.dtype == dt and torch.equal(got, want),
+                f"K1 training {what}: differs from plain")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        wrong = k1.gather_rows_plain(table, (ids + 1) % V, dim=dim,
+                                     out_dtype=dt)
+        ctl[f"K1 {what} ids shifted"] = int((wrong != got).any(1).sum())
+        require(ctl[f"K1 {what} ids shifted"] > 0,
+                f"K1 training {what} control: shifted ids give the same rows")
+        log(f"[train-kernels] K1 {what}: {ids.numel()} ids, dim {dim} "
+            f"{str(dt).split('.')[-1]} from [{V}, {LANES}]: bit-exact vs "
+            f"plain; control: ids shifted by one change "
+            f"{ctl[f'K1 {what} ids shifted']} rows")
+    return err, ctl
+
+
+def check_train_kernels(torch, step):
+    """K1, K2, K2b, K9 and K4 against their plain versions on the first
+    step's inputs, each with a control that must exceed its limit.
+    Returns the max errors and the control readings."""
+    from goctr_tpu_torch.ops.kernels import compact as k9
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+    from goctr_tpu_torch.ops.kernels import row_optimizer as k4
+
+    V, D = step["V"], step["D"]
+    errs = {}
+    errs["K1"], ctl = check_train_gather(torch, step)
+    # K2 forward: the pooled rows the trainer took
+    _, beh, item, att0, mask = step["pool"]
+    want = k2.din_attention_pool_plain(beh, item, att0, mask)
+    torch.cuda.synchronize()
+    errs["K2"] = max_err(torch, step["pooled"], want, "bfloat16",
+                         "K2 training forward")
+    atol, rtol = TOL["bfloat16"]
+    ctl["K2 pool zeroed"], _ = within(torch, torch.zeros_like(want), want,
+                                      rtol, atol)
+    require(ctl["K2 pool zeroed"] > 0,
+            "K2 control: a zeroed pool passes the limit")
+    log(f"[train-kernels] K2 B,T,D={tuple(beh.shape)} bf16 vs plain: max "
+        f"err {errs['K2']:.3g} (tol atol={atol} rtol={rtol}); control: a "
+        f"zeroed pool leaves {ctl['K2 pool zeroed']} entries outside")
+    del want
+    # K2b
+    got = k2.din_attention_pool_bwd(*step["pool"])
+    want = k2.din_attention_pool_bwd_plain(*step["pool"])
+    torch.cuda.synchronize()
+    for name, g, w_ in (("d_behaviors", got[0], want[0]),
+                        ("d_item", got[1], want[1])):
+        atol = GRAD_ATOL_REL * float(w_.float().abs().max())
+        bad, err = within(torch, g, w_, GRAD_RTOL_BF16, atol)
+        require(bad == 0, f"K2b {name}: {bad} entries outside rtol 2^-7 + "
+                          f"atol {atol:.3g} (max err {err:.3g})")
+        errs[f"K2b {name}"] = err
+    a_atol = ATT0_ATOL_REL * float(want[2].abs().max())
+    bad, err = within(torch, got[2], want[2], ATT0_RTOL, a_atol)
+    require(bad == 0, f"K2b d_att0: {bad} entries outside rtol {ATT0_RTOL}")
+    errs["K2b d_att0"] = err
+    atol = GRAD_ATOL_REL * float(want[0].float().abs().max())
+    ctl["K2b d_behaviors zeroed"], _ = within(
+        torch, torch.zeros_like(want[0]), want[0], GRAD_RTOL_BF16, atol)
+    require(ctl["K2b d_behaviors zeroed"] > 0,
+            "K2b control: zeroed d_behaviors passes the limit")
+    log(f"[train-kernels] K2b B,T,D={tuple(step['pool'][1].shape)} bf16 "
+        f"vs plain: max err d_behaviors {errs['K2b d_behaviors']:.3g}, "
+        f"d_item {errs['K2b d_item']:.3g}, d_att0 {err:.3g} (limits "
+        f"rtol 2^-7 + {GRAD_ATOL_REL}·max; d_att0 rtol {ATT0_RTOL} + "
+        f"{ATT0_ATOL_REL}·max); control: zeroed d_behaviors leaves "
+        f"{ctl['K2b d_behaviors zeroed']} entries outside")
+    # K9
+    s_ids, g_s, capr = step["s_ids"], step["g_s"], step["capr"]
+    tgt, rows, over = k9.compact_runsums_block(s_ids, g_s, V, capr)
+    w_tgt, w_rows, w_over = k9.compact_runsums_plain(s_ids, g_s, V, capr)
+    abs_rows = k9.compact_runsums_plain(s_ids, g_s.abs(), V, capr)[1]
+    torch.cuda.synchronize()
+    require(torch.equal(tgt, w_tgt), "K9: targets differ from plain")
+    require(int(over) == int(w_over), "K9: overflow differs from plain")
+    lim = RUNSUM_RTOL * abs_rows[:, :D]
+    diff = (rows[:, :D] - w_rows[:, :D]).abs()
+    require(bool((diff <= lim).all()),
+            f"K9: {int((diff > lim).sum())} run-sum entries outside "
+            f"{RUNSUM_RTOL}·Σ|g|")
+    # ‖Σg‖²: |Δ Σ s²| <= Σ (2|s|·lim + lim²), plus its own f32 rounding
+    nsq_lim = (2 * w_rows[:, :D].abs() * lim + lim * lim).sum(1) \
+        + 1e-6 * w_rows[:, D]
+    require(bool(((rows[:, D] - w_rows[:, D]).abs() <= nsq_lim).all()),
+            "K9: ‖Σg‖² lane outside its limit")
+    require(bool((rows[:, D + 1:] == 0).all()), "K9: lanes past D not 0")
+    errs["K9"] = float(diff.max())
+    hot = int(torch.argmax(abs_rows[:, :D].sum(1)))
+    zeroed = w_rows.clone()
+    zeroed[hot, :D] = 0.0
+    ctl["K9 hottest run zeroed"] = int(
+        ((rows[:, :D] - zeroed[:, :D]).abs() > lim).sum())
+    require(ctl["K9 hottest run zeroed"] > 0,
+            "K9 control: a zeroed run sum passes the limit")
+    n_real = int((w_tgt < V).sum())
+    log(f"[train-kernels] K9 n={s_ids.numel()} D={D} capr={capr}: "
+        f"{n_real} real runs (hottest Σ|g| row {hot}), overflow "
+        f"{int(over)}; targets equal, max run-sum err {errs['K9']:.3g} "
+        f"(limit {RUNSUM_RTOL}·Σ|g|); control: zeroed hottest run leaves "
+        f"{ctl['K9 hottest run zeroed']} entries outside")
+    # K4
+    table, tgt, new = step["table"], step["tgt"], step["new"]
+    got_t = k4.scatter_rows_packed(table.clone(), tgt, new, skip_ge=V)
+    want_t = k4.scatter_rows_packed_plain(table.clone(), tgt, new, skip_ge=V)
+    torch.cuda.synchronize()
+    require(torch.equal(got_t, want_t), "K4: table differs from plain")
+    real = tgt < V
+    rows_hit = tgt[real].long()
+    errs["K4"] = float((got_t[rows_hit] - want_t[rows_hit]).abs().max())
+    touched = torch.zeros(V, dtype=torch.bool, device=table.device)
+    touched[rows_hit] = True
+    require(torch.equal(got_t[~touched], table[~touched]),
+            "K4: an untouched row changed")
+    del want_t
+    shifted = torch.where(real, (tgt + 1) % V, tgt)
+    wrong = k4.scatter_rows_packed_plain(table.clone(), shifted, new,
+                                         skip_ge=V)
+    ctl["K4 targets shifted"] = int((wrong != got_t).any(1).sum())
+    require(ctl["K4 targets shifted"] > 0,
+            "K4 control: shifted targets give the same table")
+    log(f"[train-kernels] K4 {tgt.numel()} slots, {int(real.sum())} real "
+        f"rows into [{V}, 128]: bit-exact vs plain on every row, untouched "
+        f"rows unchanged; control: shifted targets change "
+        f"{ctl['K4 targets shifted']} rows")
+    return errs, ctl
+
+
+def time_train_kernels(torch, step):
+    """Device ms of K2b, K4 and K9 and their plain versions (and K4's
+    library call) on the first step's inputs, with their bounds."""
+    from goctr_tpu_torch.ops.kernels import compact as k9
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+    from goctr_tpu_torch.ops.kernels import row_optimizer as k4
+
+    V, D = step["V"], step["D"]
+    pool = step["pool"]
+    B, T, _ = pool[1].shape
+    out = {}
+    b2 = (2 * B * T * D * 2 + 3 * B * D * 2 + B * T * 4 + 2 * T * 4)
+    f2 = B * T * (13 * D + 30)
+    out["K2b"] = dict(
+        ms=device_ms(torch, lambda i: k2.din_attention_pool_bwd(*pool), 1),
+        plain_ms=device_ms(torch, lambda i: k2.din_attention_pool_bwd_plain(
+            *pool), 1, iters=6),
+        library_ms=None, bytes=b2, flops=f2)
+    s_ids, g_s, capr = step["s_ids"], step["g_s"], step["capr"]
+    n = s_ids.numel()
+    out["K9"] = dict(
+        ms=device_ms(torch, lambda i: k9.compact_runsums_block(
+            s_ids, g_s, V, capr), 1),
+        plain_ms=device_ms(torch, lambda i: k9.compact_runsums_plain(
+            s_ids, g_s, V, capr), 1, iters=6),
+        library_ms=None, bytes=n * 4 + n * D * 4 + capr * (512 + 4) + 4,
+        flops=n * D)
+    table, tgt, new = step["table"], step["tgt"], step["new"]
+    real = tgt < V
+    n_real = int(real.sum())
+    ids_real, rows_real = tgt[real].long(), new[real]
+    out["K4"] = dict(
+        ms=device_ms(torch, lambda i: k4.scatter_rows_packed(
+            table, tgt, new, skip_ge=V), 1),
+        plain_ms=device_ms(torch, lambda i: k4.scatter_rows_packed_plain(
+            table, tgt, new, skip_ge=V), 1, iters=6),
+        library_ms=device_ms(torch, lambda i: table.index_copy_(
+            0, ids_real, rows_real), 1),
+        bytes=tgt.numel() * 4 + n_real * 512 * 2, flops=0)
+    for name, r in out.items():
+        r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
+                            r["flops"] / F32_FLOPS_PER_S) * 1e3
+        r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
+                         >= r["flops"] / F32_FLOPS_PER_S else "operations")
+        lib = ("" if r["library_ms"] is None
+               else f", index_copy_ {r['library_ms']:.5f}")
+        log(f"[train-kernels] {name} device ms per call: kernel "
+            f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}{lib}, bound "
+            f"{r['bound_ms']:.5f} ({r['bytes']} B, {r['flops']} flop, "
+            f"{r['bound_by']})")
+    return out
+
+
+def profile_train_steps(torch, result, sample, cfg, topt, dev, steps=3):
+    """Device time by kernel and idle share over `steps` training steps of
+    the trained result (a copy of its model, table and solver state),
+    torch.profiler; plus the unprofiled step latency over 5 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from goctr_tpu_torch.ops.kernels.row_optimizer import pack_table
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+
+    bs = cfg.batch_size
+    model = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(result.model.state_dict())
+    table = pack_table(result.table, result.acc)
+    solver = sc.make_trainer_solver(cfg)
+    state = [x.clone() for x in result.opt_state]
+    batches = []
+    for b in range(4):
+        sl = slice(b * bs, (b + 1) * bs)
+        batches.append([torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev)
+                        for a in (sample.user_profile, sample.behavior_ids,
+                                  sample.item_ids, sample.ctx,
+                                  sample.labels)]
+                       + [torch.ones(bs, device=dev)])
+
+    def step(i):
+        nonlocal state
+        _, _, state = sc.train_step(model, table, solver, state,
+                                    *batches[i % 4], topt)
+
+    step(0)
+    torch.cuda.synchronize()
+    lat = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        step(i + 1)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_events(prof)
+    busy = sum(r[0] for r in rows)
+    log(f"[train-profile] {steps} steps: wall {wall_us / 1e3 / steps:.3f} "
+        f"ms/step, device busy {busy / 1e3 / steps:.3f} ms/step (idle share "
+        f"{max(0.0, 1 - busy / wall_us):.3f}); unprofiled step latency "
+        f"median {np.median(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms")
+    for us, count, key in rows[:24]:
+        log(f"[train-profile]   device {us / steps / 1e3:9.4f} ms/step "
+            f"x{count // steps:<4d} {key[:90]}")
+    return {"busy_ms": busy / 1e3 / steps, "wall_ms": wall_us / 1e3 / steps,
+            "lat_ms": float(np.median(lat) * 1e3)}
+
+
+def small_train_check(torch, dev):
+    """A small f32 model trained 3 epochs on the card (kernels) and by the
+    port on the CPU (plain versions) from the same start, for the dedup
+    front end and both compactions."""
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.parallel.scanned import (
+        TableOptConfig, TrainedScanned, train_sparse_scanned)
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
+
+    rng = np.random.default_rng(SEED + 4)
+    n, vocab = 3000, 400
+    sample = SparseSample(
+        user_profile=rng.random((n, 4)).astype(np.float32),
+        behavior_ids=rng.integers(-1, vocab, (n, 5)).astype(np.int32),
+        item_ids=rng.integers(0, vocab, n).astype(np.int32),
+        ctx=rng.random((n, 2)).astype(np.float32),
+        labels=(rng.random(n) > 0.5).astype(np.float32))
+    cfgd = dict(item_vocab=vocab, emb_dim=64, u_profile_dim=4, ctx_dim=2,
+                behavior_len=5, hidden=(16,))
+    m0 = SparseCTR(**cfgd, device="cpu")
+    table0 = m0.init_params(torch.Generator().manual_seed(SEED))
+    worst = [0.0, 0.0]
+    for cap, impl in ((0, "xla"), (2048, "xla"), (2048, "kernel")):
+        out = {}
+        for d in ("cpu", dev):
+            m = SparseCTR(**cfgd, device="cpu")
+            m.load_state_dict(m0.state_dict())
+            out[str(d)] = train_sparse_scanned(
+                SparseCTR(**cfgd, device=d), sample,
+                TrainerConfig(batch_size=1024, epochs=3, early_stop=0,
+                              shuffle=False),
+                TableOptConfig(kind="adagrad", lr=0.3, compact_cap=cap,
+                               compact_impl=impl),
+                resume_from=TrainedScanned(model=m, table=table0.clone(),
+                                           loss_curve=[]), device=d)
+        c, g = out["cpu"], out[str(dev)]
+        lc = np.abs(np.array(g.loss_curve) - c.loss_curve) / np.abs(
+            c.loss_curve)
+        worst[0] = max(worst[0], float(lc.max()))
+        require(lc.max() <= TRAJ_LOSS_RTOL,
+                f"small trainer {impl}/{cap}: loss curves differ by "
+                f"{lc.max():.3g} (rtol {TRAJ_LOSS_RTOL})")
+        for name, x, y in (("table", g.table, c.table), ("acc", g.acc, c.acc)):
+            bad, err = within(torch, x.cpu(), y, TRAJ_TABLE_RTOL,
+                              TRAJ_TABLE_ATOL)
+            worst[1] = max(worst[1], err)
+            require(bad == 0, f"small trainer {impl}/{cap}: {name} "
+                              f"{bad} entries outside (max err {err:.3g})")
+    log(f"[train] small f32 trainer, card (kernels) vs CPU (plain), "
+        f"cap 0 / xla 2048 / kernel 2048, 3 epochs: max loss rel diff "
+        f"{worst[0]:.3g} (rtol {TRAJ_LOSS_RTOL}), max table/acc err "
+        f"{worst[1]:.3g} (rtol {TRAJ_TABLE_RTOL}, atol {TRAJ_TABLE_ATOL})")
+
+
+def compaction_controls(torch, sample, cfg, topt, start, dev, loss0):
+    """One epoch of the kernel-compaction run from `start` for each wrong
+    compaction below (K9's output changed on the device, every step), and
+    the relative distance of its first-epoch loss from `loss0`, the xla
+    run's. Each must exceed LOSS_RTOL_IMPL, or the loss check could not
+    catch a wrong compaction. Returns the readings."""
+    import dataclasses
+
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+
+    D = HEADLINE["emb_dim"]
+
+    def largest_zeroed(tgt, rows, over):
+        hot = rows[:, D].argmax().view(1)          # the largest ‖Σg‖²
+        return tgt, rows.index_fill(0, hot, 0.0), over
+
+    def sums_shifted(tgt, rows, over):
+        # each real target takes its predecessor's run sum; the last real
+        # sum lands in the first junk slot, which the scatter skips
+        return tgt, rows.roll(1, 0), over
+
+    real = sc.compact_runsums_block
+    readings = {}
+    try:
+        for name, corrupt in (("largest run sum zeroed", largest_zeroed),
+                              ("run sums shifted one slot", sums_shifted)):
+            sc.compact_runsums_block = (
+                lambda *a, corrupt=corrupt: corrupt(*real(*a)))
+            r = sc.train_sparse_scanned(
+                SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16,
+                          device=dev),
+                sample, dataclasses.replace(cfg, epochs=1),
+                dataclasses.replace(topt, compact_impl="kernel"),
+                resume_from=start, device=dev)
+            readings[name] = abs(r.loss_curve[0] - loss0) / abs(loss0)
+            del r
+    finally:
+        sc.compact_runsums_block = real
+    log(f"[train] compaction controls, first-epoch loss rel diff from xla "
+        f"(must exceed {LOSS_RTOL_IMPL}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in readings.items()))
+    for name, v in readings.items():
+        require(v > LOSS_RTOL_IMPL,
+                f"compaction control '{name}': loss rel diff {v:.3g} is "
+                f"inside the limit {LOSS_RTOL_IMPL}, which therefore "
+                f"cannot catch it")
+    return readings
+
+
+def train_phase(torch, dev, gen, reqs, kernels):
+    """Phase 6; returns the kernels-line entries of K2b, K4 and K9 and
+    the max errors of K1 and K2 on the training path's inputs."""
+    import dataclasses
+
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.ops.kernels import compact as k9
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+    from goctr_tpu_torch.ops.kernels import row_gather as k1
+    from goctr_tpu_torch.ops.kernels import row_optimizer as k4
+    from goctr_tpu_torch.parallel.scanned import (
+        TableOptConfig, TrainedScanned, train_sparse_scanned)
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+    from goctr_tpu_torch.serve.scorer import DeviceScorer
+
+    V, T = HEADLINE["item_vocab"], HEADLINE["behavior_len"]
+    t0 = time.perf_counter()
+    sample = make_workload(TRAIN_ROWS, V, T, HEADLINE["u_profile_dim"],
+                           HEADLINE["ctx_dim"], seed=SEED)
+    cap = bench_compact_cap(sample, TRAIN_BATCH)
+    log(f"[train] workload {TRAIN_ROWS} rows in "
+        f"{time.perf_counter() - t0:.1f} s; compact_cap {cap}")
+    cfg = TrainerConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                        early_stop=0, lr=1e-3, shuffle=True, seed=SEED)
+    topt = TableOptConfig(kind="adagrad", lr=TABLE_LR, compact_cap=cap,
+                          compact_impl="xla")
+    model0 = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev)
+    start = TrainedScanned(model=model0, table=model0.init_params(gen),
+                           loss_curve=[])
+
+    step = first_step(torch, start, sample, cfg, topt, dev)
+    errs, ctl = check_train_kernels(torch, step)
+    times = time_train_kernels(torch, step)
+    del step
+    small_train_check(torch, dev)
+
+    # the main path: counts reset just before, read just after
+    counted = (k1.gather_rows, k2.din_attention_pool,
+               k2.din_attention_pool_bwd, k4.scatter_rows_packed,
+               k9.compact_runsums_block)
+    for f in counted:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    r_xla = train_sparse_scanned(
+        SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev),
+        sample, cfg, topt, resume_from=start, device=dev)
+    r_ker = train_sparse_scanned(
+        SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev),
+        sample, dataclasses.replace(cfg, epochs=1),
+        dataclasses.replace(topt, compact_impl="kernel"),
+        resume_from=start, device=dev)
+    launches = {f.__name__: f.launches for f in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(all(v > 0 for v in launches.values()),
+            f"train: a kernel of the path was never launched {launches}")
+    steps = TRAIN_ROWS // TRAIN_BATCH
+    lc = r_xla.loss_curve
+    require(all(np.isfinite(lc)) and lc[-1] < lc[0],
+            f"train: the loss does not fall {lc}")
+    require(r_xla.update_overflow_max == 0 and r_ker.update_overflow_max == 0,
+            "train: compact_cap overflowed")
+    rel = abs(r_ker.loss_curve[0] - lc[0]) / abs(lc[0])
+    require(rel <= LOSS_RTOL_IMPL,
+            f"train: first-epoch loss xla {lc[0]} vs kernel "
+            f"{r_ker.loss_curve[0]} (rel {rel:.3g} > {LOSS_RTOL_IMPL})")
+    steady = TRAIN_ROWS * (TRAIN_EPOCHS - 1) / sum(r_xla.epoch_times[1:])
+    log(f"[train] headline 10M x 64, batch {TRAIN_BATCH}, {steps} steps/"
+        f"epoch: loss curve (xla) {lc}, epoch s {r_xla.epoch_times}; "
+        f"kernel compaction epoch 1 loss {r_ker.loss_curve[0]} (rel diff "
+        f"{rel:.3g}, limit {LOSS_RTOL_IMPL}), {r_ker.epoch_times[0]:.3f} s; "
+        f"overflow 0; steady-state {steady:.1f} ex/s, step "
+        f"{sum(r_xla.epoch_times[1:]) / (steps * (TRAIN_EPOCHS - 1)) * 1e3:.3f}"
+        f" ms; peak device memory {peak:.2f} GB; launches {launches}")
+    del r_ker
+    ctl.update(compaction_controls(torch, sample, cfg, topt, start, dev,
+                                   lc[0]))
+    prof = profile_train_steps(torch, r_xla, sample, cfg, topt, dev)
+
+    # the trained result serves
+    scorer = DeviceScorer.from_scanned(r_xla, device=dev)
+    p0, b0, c0, k0 = batch(reqs, 0)
+    first, rate, _ = drive(torch, kernels, scorer, reqs, "trained headline")
+    check_scores(first, plain_scores(torch, scorer, p0, b0, c0, k0),
+                 SCORE_ATOL_TRAINED, "trained headline kernels vs plain")
+    ctl.update(check_controls(torch, scorer, first, p0, b0, c0, k0,
+                              "trained headline", SCORE_ATOL_TRAINED))
+    entries = []
+    for key, name, src, replaces, err in (
+            ("K2b", "din_attention_bwd", "din_attention_bwd.cu",
+             "goctr_tpu/parallel/sparse_ctr.py:128",
+             errs["K2b d_behaviors"]),
+            ("K4", "scatter_rows_packed", "row_scatter.cu",
+             "goctr_tpu/ops/pallas/row_optimizer.py:824", errs["K4"]),
+            ("K9", "compact_runsums_block", "compact_runsums.cu",
+             "goctr_tpu/ops/pallas/compact.py:129", errs["K9"])):
+        r = times[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"goctr_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[{"K2b": "din_attention_pool_bwd",
+                                  "K4": "scatter_rows_packed",
+                                  "K9": "compact_runsums_block"}[key]],
+            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    log(f"[train] done: steady {steady:.1f} ex/s, profiled step device "
+        f"busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}; trained "
+        f"serving {rate:.1f} scores/s; controls {ctl}")
+    return entries, errs["K1"], errs["K2"]
+
+
 def main() -> int:
     import torch
 
@@ -530,7 +1166,8 @@ def main() -> int:
 
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build("row_gather", "din_attention")
+    libs = _build.build("row_gather", "din_attention", "din_attention_bwd",
+                        "row_scatter", "compact_runsums")
     card = card_line()
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s; torch {torch.__version__} "
@@ -662,7 +1299,12 @@ def main() -> int:
     # 5. http -------------------------------------------------------------
     http_check(scorer, reqs)
 
-    # 6. result lines -----------------------------------------------------
+    # 6. train ------------------------------------------------------------
+    train_entries, k1_train_err, k2_train_err = train_phase(
+        torch, dev, gen, reqs, kernels)
+    k1_err, k2_err = max(k1_err, k1_train_err), max(k2_err, k2_train_err)
+
+    # result lines -------------------------------------------------------
     kernels_line = {"kernels": [
         {"name": "row_gather", "route": "cuda",
          "source": "goctr_tpu_torch/csrc/row_gather.cu",
@@ -679,7 +1321,7 @@ def main() -> int:
          "bound_by": ("bytes" if din_bytes / HBM_BYTES_PER_S
                       >= din_flops / F32_FLOPS_PER_S else "operations"),
          "library_ms": None},
-    ]}
+    ] + train_entries}
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "

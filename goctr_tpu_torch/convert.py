@@ -1,9 +1,14 @@
-"""Carry the JAX package's SparseCTR parameters into the port.
+"""Carry the JAX package's SparseCTR parameters and trainer state into
+the port.
 
 The input is numpy, as the JAX side hands it over: the dense parameters
 flattened by `goctr_tpu.models.io._flatten_params` (`att0`, `mlp.<i>`,
-`bias.<i>`) and the item table as `np.asarray(table)`. Nothing here
+`bias.<i>`), the item table as `np.asarray(table)`, the adagrad
+accumulator as `np.asarray(acc)`, and the solver state as
+`[np.asarray(x) for x in jax.tree.leaves(opt_state)]`. Nothing here
 imports JAX; a caller that holds JAX arrays converts them with numpy.
+`scanned_from_jax` builds the TrainedScanned the port's trainer resumes
+from (`train_sparse_scanned(..., resume_from=...)`).
 """
 from __future__ import annotations
 
@@ -12,6 +17,8 @@ import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
 from goctr_tpu_torch.ops.kernels.row_optimizer import LANES
+from goctr_tpu_torch.parallel.scanned import TrainedScanned
+from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 
 LAYOUTS = ("plain", "packed", "grouped")
 
@@ -34,3 +41,27 @@ def params_from_jax(flat: dict[str, np.ndarray], table: np.ndarray,
     dense = {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
              for k, v in flat.items()}
     return dense, torch.from_numpy(np.array(table, np.float32)).to(dev)
+
+
+def scanned_from_jax(model: SparseCTR, flat: dict[str, np.ndarray],
+                     table: np.ndarray, acc: np.ndarray | None = None,
+                     opt_state: list[np.ndarray] | None = None,
+                     loss_curve: list[float] | None = None,
+                     device: str | torch.device = "cuda") -> TrainedScanned:
+    """A JAX TrainedScanned's state as the port's: `flat` dense parameters
+    are loaded into `model` (moved to `device`), `table` is the [V, D]
+    table (the JAX result's unpacked table), `acc` its [V] adagrad
+    accumulator, `opt_state` the solver state's leaves in JAX leaf
+    order. The result can be passed to train_sparse_scanned as
+    resume_from, saved, or served."""
+    dev = resolve_device(device)
+    dense, table_t = params_from_jax(flat, table, "plain", device=dev)
+    model.to(dev)
+    model.load_state_dict(dense)
+    acc_t = (torch.from_numpy(np.array(acc, np.float32)).to(dev)
+             if acc is not None and np.size(acc) else None)
+    state = (None if opt_state is None else
+             [torch.from_numpy(np.array(x)).to(dev) for x in opt_state])
+    return TrainedScanned(model=model, table=table_t,
+                          loss_curve=list(loss_curve or []),
+                          opt_state=state, acc=acc_t)

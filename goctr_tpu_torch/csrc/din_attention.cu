@@ -25,6 +25,8 @@
 // l holds dims l, l+32, ...), and the two per-step reductions (dot,
 // |b|²) are warp shuffles. Nothing crosses blocks, and the loop is
 // bounded at T, so a ragged T needs no tail masking.
+// Plain version: din_attention_pool_plain in
+// goctr_tpu_torch/ops/kernels/din_attention.py.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

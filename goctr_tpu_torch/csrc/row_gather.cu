@@ -27,6 +27,8 @@
 // start at (id % G)·(D+1) floats, which is not 16-byte aligned, and take
 // the scalar path. Many warps in flight stand in for the TPU kernel's
 // ring of outstanding row DMAs.
+// Plain version: gather_rows_plain in
+// goctr_tpu_torch/ops/kernels/row_gather.py.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -17,6 +17,15 @@ PyTorch version (cosine with the eps² norm clamp of cosine_similarity).
 plain version for CPU tensors; on any other device, or when the kernel
 cannot be built or launched, it raises. `din_attention_pool.launches`
 counts kernel launches.
+
+K2b is the pool's backward: `din_attention_pool_bwd` (kernel
+csrc/din_attention_bwd.cu, plain version `din_attention_pool_bwd_plain`,
+same routing, `din_attention_pool_bwd.launches`). `DinAttentionPool` is
+the `torch.autograd.Function` that ties them: forward K2, backward K2b.
+The JAX trainer differentiates the inline pool (no Pallas backward); the
+plain backward writes that derivative out, with the eps² norm clamp of
+cosine_similarity (a zero behavior row gets an exactly zero gradient
+through its norm, never a NaN).
 """
 from __future__ import annotations
 
@@ -35,6 +44,15 @@ _SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
 _ARGTYPES = {"din_attention_f32": _SIGNATURE,
              "din_attention_bf16": _SIGNATURE}
 MAX_DIM = 256                      # csrc/din_attention.cu kMaxDim
+_BWD_NAME = "din_attention_bwd"
+# (dout, behaviors, item, att0, mask, d_beh, d_item, d_att0, partial,
+#  batch, seq, dim, stream)
+_BWD_SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_BWD_ARGTYPES = {"din_attention_bwd_f32": _BWD_SIGNATURE,
+                 "din_attention_bwd_bf16": _BWD_SIGNATURE}
+BWD_ROWS_PER_BLOCK = 8             # csrc/din_attention_bwd.cu kWarpsPerBlock
+BWD_MAX_SEQ = 4096                 # d_att0 partials: 8·T floats of smem
 _count_lock = threading.Lock()
 
 
@@ -105,3 +123,100 @@ def din_attention_pool(behaviors: torch.Tensor, item: torch.Tensor,
 
 
 din_attention_pool.launches = 0
+
+
+def din_attention_pool_bwd_plain(dout: torch.Tensor,
+                                 behaviors: torch.Tensor,
+                                 item: torch.Tensor, att0: torch.Tensor,
+                                 mask: torch.Tensor):
+    """Plain PyTorch version of K2b: (d_behaviors, d_item) in the input
+    dtype and d_att0 [T] float32, all arithmetic float32 (the formulas are
+    written out in csrc/din_attention_bwd.cu)."""
+    b = behaviors.float()
+    i = item.float()[:, None, :]
+    go = dout.float()[:, None, :]
+    e2 = float(torch.tensor(1e-8, dtype=torch.float32) ** 2)
+    bb = (b * b).sum(-1)                                   # [B, T]
+    ii = (i * i).sum(-1)                                   # [B, 1]
+    nb = torch.sqrt(torch.clamp(bb, min=e2))
+    ni = torch.sqrt(torch.clamp(ii, min=e2))
+    den = nb * ni + 1e-8
+    cos = (b * i).sum(-1) / den
+    w = (cos + 1.0) * 0.5
+    g = torch.sigmoid(w * att0)
+    den_m = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
+    dz = (go * b).sum(-1) / den_m * mask * g * (1.0 - g)
+    d_att0 = (dz * w).sum(0)
+    dcos = dz * att0 * 0.5
+    ddot = dcos / den
+    dden = -dcos * cos / den
+    cb = torch.where(bb > e2, dden * ni / nb, 0.0)
+    ci = torch.where(ii > e2, (dden * nb).sum(1, keepdim=True) / ni, 0.0)
+    d_b = ((g * mask / den_m)[..., None] * go + ddot[..., None] * i
+           + cb[..., None] * b)
+    d_i = (ddot[..., None] * b).sum(1) + ci * i[:, 0]
+    return d_b.to(behaviors.dtype), d_i.to(item.dtype), d_att0
+
+
+def din_attention_pool_bwd(dout: torch.Tensor, behaviors: torch.Tensor,
+                           item: torch.Tensor, att0: torch.Tensor,
+                           mask: torch.Tensor):
+    """K2b: gradients of din_attention_pool's output `dout` [B, D] (in
+    the behaviors' dtype) → (d_behaviors [B, T, D], d_item [B, D] in the
+    input dtype, d_att0 [T] float32)."""
+    _check(behaviors, item, att0, mask)
+    b, t, d = behaviors.shape
+    if dout.shape != (b, d) or dout.dtype != behaviors.dtype \
+            or dout.device != behaviors.device:
+        raise ValueError(f"dout must be [{b}, {d}] {behaviors.dtype} on "
+                         f"{behaviors.device}, got {tuple(dout.shape)} "
+                         f"{dout.dtype} on {dout.device}")
+    if not dout.is_contiguous():
+        raise ValueError("dout must be contiguous")
+    if behaviors.device.type == "cpu":
+        return din_attention_pool_bwd_plain(dout, behaviors, item, att0,
+                                            mask)
+    if behaviors.device.type != "cuda":
+        raise ValueError(f"no din_attention_bwd kernel for "
+                         f"{behaviors.device}")
+    if t > BWD_MAX_SEQ:
+        raise ValueError(f"T = {t} > {BWD_MAX_SEQ} is not supported")
+    d_beh = torch.empty_like(behaviors)
+    d_item = torch.empty_like(item)
+    d_att0 = torch.empty(t, dtype=torch.float32, device=behaviors.device)
+    if b == 0:
+        return d_beh, d_item, d_att0.zero_()
+    n_blocks = -(-b // BWD_ROWS_PER_BLOCK)
+    partial = torch.empty(t * n_blocks, dtype=torch.float32,
+                          device=behaviors.device)
+    lib = _build.load(_BWD_NAME, _BWD_ARGTYPES)
+    fn = lib.din_attention_bwd_bf16 if behaviors.dtype == torch.bfloat16 \
+        else lib.din_attention_bwd_f32
+    code = fn(dout.data_ptr(), behaviors.data_ptr(), item.data_ptr(),
+              att0.data_ptr(), mask.data_ptr(), d_beh.data_ptr(),
+              d_item.data_ptr(), d_att0.data_ptr(), partial.data_ptr(),
+              b, t, d, torch.cuda.current_stream(behaviors.device).cuda_stream)
+    _build.check(lib, _BWD_NAME, code)
+    with _count_lock:
+        din_attention_pool_bwd.launches += 1
+    return d_beh, d_item, d_att0
+
+
+din_attention_pool_bwd.launches = 0
+
+
+class DinAttentionPool(torch.autograd.Function):
+    """The pool with a gradient: forward K2, backward K2b (their plain
+    versions on the CPU). mask takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, behaviors, item, att0, mask):
+        ctx.save_for_backward(behaviors, item, att0, mask)
+        return din_attention_pool(behaviors, item, att0, mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        behaviors, item, att0, mask = ctx.saved_tensors
+        d_beh, d_item, d_att0 = din_attention_pool_bwd(
+            dout.contiguous(), behaviors, item, att0, mask)
+        return d_beh, d_item, d_att0, None

@@ -1,11 +1,43 @@
-"""Trained SparseCTR state and its checkpoints — the serving half of
-goctr_tpu/parallel/scanned.py (TrainedScanned :58-123, checkpoints
-:674-755). The scanned trainer itself comes with the training slice.
+"""Device-resident scanned trainer for SparseCTR, its result and its
+checkpoints (port of goctr_tpu/parallel/scanned.py: TrainedScanned
+:58-123, table_pad_rows :135-144, the fused G = 1 branch of _table_update
+with its compaction front ends :147-333, train_sparse_scanned :383-671,
+checkpoints :674-755, the analytic per-example counts :758-827).
+
+The whole dataset lives on the device. Each step gathers the batch's rows
+from the packed [V, 128] table (w | adagrad acc | 0) with kernel K1,
+differentiates the loss with respect to the gathered rows (the table never
+enters autograd: no [V, D] gradient), takes one solver step on the dense
+parameters, and updates the table rows in place:
+
+    sort the batch's T+1 ids per example (stable), sum each id's rows
+    (the dedup front end, ops/segsum.py; or, with compact_cap > 0, the
+    compaction to at most cap unique rows: rank-sort glue, or kernel K9),
+    then row adagrad or sgd: read (K1), compute, write back (kernel K4).
+
+Loss and overflow stay on the device; the host syncs once per epoch, as
+the JAX trainer does (`float(cost)` once per epoch, :633-634). Padded
+update slots follow the JAX trainer: the stream is padded to a multiple
+of ROWS_PER_STEP with pad id V, and junk targets are V+1+k, which the
+row write skips.
+
+What the port's trainer accepts so far (others raise NotImplementedError
+naming the ROADMAP item that brings them): update_mode "fused" with one
+row per 128-lane line (64 <= emb_dim < 128; at emb_dim <= 63 the JAX
+trainer packs G = 128 // (D+1) rows per line, ROADMAP A3), rmw_impl
+"split" (the one-pass RMW kernel is ROADMAP A4), compact_cap 0 or > 0,
+compact_impl "xla" or "kernel".
+
+Random streams: shuffling and dropout draw from one torch.Generator
+seeded from `TrainerConfig.seed` (and, on resume, the epochs done). They
+cannot match JAX's threefry streams; parity tests run with shuffle=False
+and dropout 0.
 
 A checkpoint is a directory of `meta.json` (model config, loss curve,
 trainer config), `dense.npz` (flattened dense parameters, models/io.py
-names) and `table.npz` (`table` [V, D] f32 and the adagrad `acc` [V],
-empty when absent), written the same way by both packages, so either
+names), `table.npz` (`table` [V, D] f32 and the adagrad `acc` [V], empty
+when absent) and `opt_state.npz` (the solver state's leaves "0", "1", ...
+in JAX leaf order), written the same way by both packages, so either
 loads the other's. Grouped line tables are unpacked to [V, D] on save,
 as the JAX package does.
 """
@@ -13,7 +45,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import warnings
+import logging
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -22,15 +55,26 @@ import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
 from goctr_tpu_torch.models.io import _flatten_params
+from goctr_tpu_torch.models.trainer import TrainerConfig
+from goctr_tpu_torch.ops.kernels.compact import compact_runsums_block
 from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
-    unpack_table_grouped_np,
+    ROWS_PER_STEP, apply_row_updates_split, group_size, pack_grads,
+    pack_table, unpack_table_grouped_np,
 )
+from goctr_tpu_torch.ops.segsum import _cumsum_rows, segment_rows_dedup
+from goctr_tpu_torch.optim.optimizers import Solver, make_solver
+from goctr_tpu_torch.optim.schedules import make_schedule
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
+from goctr_tpu_torch.parallel.table_opt import TableOptConfig
 
-__all__ = ["TrainedScanned", "save_scanned_checkpoint",
-           "load_scanned_checkpoint"]
+__all__ = ["TableOptConfig", "TrainedScanned", "train_sparse_scanned",
+           "save_scanned_checkpoint", "load_scanned_checkpoint",
+           "model_bytes_per_example", "model_flops_per_example",
+           "table_pad_rows"]
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -38,8 +82,15 @@ class TrainedScanned:
     model: SparseCTR                    # holds the dense parameters
     table: torch.Tensor                 # [V, D], or grouped [L, 128] lines
     loss_curve: list[float]
+    epoch_times: list[float] = dataclasses.field(default_factory=list)
+    # solver state leaves in JAX leaf order (optim/optimizers.py)
+    opt_state: Optional[list[torch.Tensor]] = dataclasses.field(
+        default=None, repr=False)
     acc: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                     repr=False)
+    # max per-batch count of unique rows dropped by compact_cap (0 = every
+    # batch fit; if ever nonzero, grow the cap)
+    update_overflow_max: int = 0
     # >1: `table` is grouped packed lines [ceil(V/G), 128]
     packed_group: int = 1
 
@@ -82,14 +133,354 @@ class TrainedScanned:
         return out
 
 
+def table_pad_rows(batch_size: int, behavior_len: int) -> int:
+    """Junk rows the JAX `dedup` mode allocates past the vocab: one shared
+    row for the -1 pads + a distinct target per update position (n
+    rounded up to ROWS_PER_STEP) + margin. The port's fused trainer
+    allocates none: its junk targets are skipped by the row write."""
+    n = batch_size * (behavior_len + 1)
+    n = -(-n // ROWS_PER_STEP) * ROWS_PER_STEP
+    return n + 2
+
+
+def _check_supported(topt: TableOptConfig, emb_dim: int) -> None:
+    if topt.kind not in ("adagrad", "sgd"):
+        raise ValueError(f"unknown table optimizer {topt.kind!r}")
+    if topt.update_mode != "fused":
+        raise NotImplementedError(
+            f"update_mode={topt.update_mode!r}: the port trains with "
+            "'fused' only so far; fused2, runfused, dedup, sorted and plain "
+            "come with ROADMAP A4")
+    if emb_dim >= 128:
+        raise ValueError("update_mode='fused' requires emb_dim < 128 "
+                         "(weights+acc pack into one 128-lane row)")
+    if group_size(emb_dim) > 1:
+        raise NotImplementedError(
+            f"emb_dim={emb_dim} packs G={group_size(emb_dim)} rows per "
+            "128-lane line; grouped-line training (kernel K6) comes with "
+            "ROADMAP A3")
+    if topt.rmw_impl != "split":
+        raise NotImplementedError(
+            f"rmw_impl={topt.rmw_impl!r}: the one-pass RMW row update "
+            "(kernel K5) comes with ROADMAP A4; use 'split'")
+    if topt.compact_impl not in ("xla", "kernel"):
+        raise ValueError(f"unknown compact_impl {topt.compact_impl!r}")
+
+
+def _compact_xla(s_ids: torch.Tensor, g_s: torch.Tensor, vocab: int,
+                 capr: int):
+    """The JAX trainer's rank-sort compaction (scanned.py:296-311): run
+    sums as differences of consecutive run-end cumsum rows, the first capr
+    real run ends selected by one stable sort."""
+    n, d = g_s.shape
+    dev = g_s.device
+    c = _cumsum_rows(g_s)
+    is_end = torch.cat([s_ids[1:] != s_ids[:-1],
+                        torch.ones(1, dtype=torch.bool, device=dev)])
+    real_end = is_end & (s_ids < vocab)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    sel = torch.sort(torch.where(real_end, pos, n + pos),
+                     stable=True).indices[:capr]
+    sel_real = real_end[sel]
+    c_sel = c[sel]
+    prev = torch.cat([c_sel.new_zeros((1, d)), c_sel[:-1]])
+    rows = torch.where(sel_real[:, None], c_sel - prev, 0.0)
+    tgt = torch.where(sel_real, s_ids[sel], vocab + 1 + pos[:capr])
+    overflow = torch.clamp(real_end.sum() - capr, min=0).to(torch.int32)
+    return tgt.to(torch.int32), rows, overflow
+
+
+def sort_updates(ids_flat: torch.Tensor, g_flat: torch.Tensor,
+                 vocab: int):
+    """The compaction front end's sorted stream: pads (-1) become id
+    `vocab` with zero rows, the stream is padded to a multiple of
+    ROWS_PER_STEP with the same, and a stable sort orders it by id.
+    Returns (s_ids [n_to] int32, g_s [n_to, D] f32)."""
+    n0, d = g_flat.shape
+    n_to = -(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP
+    valid = ids_flat >= 0
+    g_flat = g_flat * valid[:, None].to(g_flat.dtype)
+    ids_clean = torch.where(valid, ids_flat, vocab)
+    if n_to > n0:
+        ids_clean = torch.cat([ids_clean, torch.full(
+            (n_to - n0,), vocab, dtype=ids_clean.dtype,
+            device=ids_clean.device)])
+        g_flat = torch.cat([g_flat, g_flat.new_zeros((n_to - n0, d))])
+    order = torch.sort(ids_clean, stable=True).indices
+    return ids_clean[order], g_flat[order]
+
+
+def compact_slots(compact_cap: int, n_to: int) -> int:
+    """Slots of the compacted stream: the cap rounded up to ROWS_PER_STEP,
+    at most the padded stream's length (scanned.py:286-287)."""
+    return min(-(-compact_cap // ROWS_PER_STEP) * ROWS_PER_STEP, n_to)
+
+
+def update_stream(ids_flat: torch.Tensor, g_flat: torch.Tensor,
+                  topt: TableOptConfig, vocab: int):
+    """One batch's row gradients as the row update takes them: (tgt [m]
+    int32, pairwise distinct below vocab, junk targets past it; g_packed
+    [m, 128] = Σg | ‖Σg‖² | 0; overflow, the int32 count of unique rows
+    the compaction cap dropped, on the device). ids_flat [n] int32 (-1 =
+    behavior pad, contributes nothing), g_flat [n, D] f32."""
+    n0, d = g_flat.shape
+    n_to = -(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP
+    if not topt.compact_cap:
+        tgt, rows = segment_rows_dedup(ids_flat, g_flat, vocab, pad_to=n_to)
+        return tgt, pack_grads(rows), torch.zeros(
+            (), dtype=torch.int32, device=g_flat.device)
+    s_ids, g_s = sort_updates(ids_flat, g_flat, vocab)
+    capr = compact_slots(topt.compact_cap, n_to)
+    if topt.compact_impl == "kernel":
+        # the JAX trainer takes the kernel only for vocab < 2^24 because
+        # its ids ride an f32 matmul on the TPU; K9 keeps ids in int32, so
+        # only its D < 127 holds here (it raises otherwise, as JAX does)
+        return compact_runsums_block(s_ids, g_s, vocab, capr)
+    tgt, rows, overflow = _compact_xla(s_ids, g_s, vocab, capr)
+    return tgt, pack_grads(rows), overflow
+
+
+def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
+                  g_flat: torch.Tensor, topt: TableOptConfig,
+                  vocab: int) -> torch.Tensor:
+    """Apply one batch's row gradients to the packed [V, 128] table in
+    place (fused update, one row per line); returns the overflow count
+    (always 0 with compact_cap = 0), on the device."""
+    tgt, g_packed, overflow = update_stream(ids_flat, g_flat, topt, vocab)
+    apply_row_updates_split(table, tgt, g_packed, lr=topt.lr,
+                            d=g_flat.shape[1], kind=topt.kind, eps=topt.eps,
+                            skip_ge=vocab)
+    return overflow
+
+
+def bce_loss(logits: torch.Tensor, y: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """Weighted mean of the stable BCE-with-logits (scanned.py:513-515)."""
+    losses = (torch.clamp(logits, min=0) - logits * y
+              + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def make_trainer_solver(cfg: TrainerConfig) -> Solver:
+    """The dense-parameter solver the scanned trainer uses for `cfg`."""
+    schedule = make_schedule(cfg.lr_schedule, cfg.lr, cfg.power_t)
+    return make_solver(cfg.solver, schedule, l2=cfg.l2,
+                       weight_decay=cfg.weight_decay, momentum=cfg.momentum,
+                       beta1=cfg.beta1, beta2=cfg.beta2, epsilon=cfg.epsilon)
+
+
+def trainer_generator(cfg: TrainerConfig, epochs_done: int,
+                      device: torch.device) -> torch.Generator:
+    """The generator of a run that starts after `epochs_done` epochs:
+    it draws the fresh parameters (when not resuming), then each epoch's
+    permutation and the dropout masks."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed * 1_000_003 + epochs_done)
+    return gen
+
+
+def epoch_order(gen: torch.Generator, n_pad: int, shuffle: bool,
+                device: torch.device) -> torch.Tensor:
+    """One epoch's example order: a permutation of the padded dataset."""
+    if shuffle:
+        return torch.randperm(n_pad, generator=gen, device=device)
+    return torch.arange(n_pad, device=device)
+
+
+def gather_batch_rows(model: SparseCTR, table: torch.Tensor,
+                      b_bids: torch.Tensor, b_iids: torch.Tensor,
+                      sorted_gather: bool) -> torch.Tensor:
+    """The rows of one batch's ids, [B·T + B, D] in the compute dtype:
+    behaviors (pads read row 0, masked later) then items, gathered from
+    the packed table by K1, in raw or ascending-id order."""
+    flat = torch.cat([b_bids.reshape(-1), b_iids])
+    d, cd = model.emb_dim, model.compute_dtype
+    if not sorted_gather:
+        return gather_rows(table, flat.clamp_min(0), dim=d, out_dtype=cd)
+    order = torch.sort(flat, stable=True).indices
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    rows = gather_rows(table, flat[order].clamp_min(0), dim=d, out_dtype=cd)
+    return rows[inv]
+
+
+def batch_loss(model: SparseCTR, emb: torch.Tensor, b_prof, b_bids, b_ctx,
+               b_y, b_w, generator: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
+    """The training loss of one batch over its gathered rows `emb`
+    ([B·T + B, D], as gather_batch_rows returns them)."""
+    bs, t = b_bids.shape
+    nb = bs * t
+    emb_b = emb[:nb].view(bs, t, model.emb_dim)
+    emb_i = emb[nb:]
+    mask = (b_bids >= 0).float()
+    logits = model.apply_pooled(b_prof, emb_b, emb_i, b_ctx, mask,
+                                train=True, generator=generator)
+    return bce_loss(logits, b_y, b_w)
+
+
+def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
+               opt_state: list[torch.Tensor], b_prof, b_bids, b_iids, b_ctx,
+               b_y, b_w, topt: TableOptConfig,
+               generator: Optional[torch.Generator] = None):
+    """One step of the scanned trainer on one batch: gather the rows (K1),
+    differentiate the loss with respect to the dense parameters and the
+    gathered rows (K2 forward, K2b backward), take a solver step on the
+    dense parameters in place, and update the packed table in place.
+    Returns (loss, overflow, new solver state); nothing syncs the host."""
+    params = model.param_leaves()
+    with torch.enable_grad():
+        emb = gather_batch_rows(model, table, b_bids, b_iids,
+                                topt.sorted_gather).requires_grad_()
+        loss = batch_loss(model, emb, b_prof, b_bids, b_ctx, b_y, b_w,
+                          generator)
+        *g_dense, g_emb = torch.autograd.grad(loss, params + [emb])
+    updates, opt_state = solver.update(g_dense, opt_state, params)
+    with torch.no_grad():
+        for p, u in zip(params, updates):
+            p.add_(u)
+        ids_flat = torch.cat([b_bids.reshape(-1), b_iids])
+        overflow = _table_update(table, ids_flat, g_emb.float(), topt,
+                                 model.item_vocab)
+    return loss.detach(), overflow, opt_state
+
+
+def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
+                         cfg: Optional[TrainerConfig] = None,
+                         table_opt: Optional[TableOptConfig] = None,
+                         resume_from: Optional[TrainedScanned] = None,
+                         device: str | torch.device = "cuda",
+                         ) -> TrainedScanned:
+    """Single-device scanned training of `model` on `sample`.
+
+    Without resume_from the dense parameters and a fresh [V, D] table are
+    drawn from the run's generator. With it, training continues from its
+    dense parameters (copied into `model`), table, adagrad accumulator and
+    solver state; resume_from itself is not modified (unless it shares
+    `model`). `model` is moved to `device` and its parameters are trained
+    in place. The result's table is a contiguous [V, D] tensor and its acc
+    a [V] tensor, both fresh."""
+    cfg = cfg or TrainerConfig()
+    topt = table_opt or TableOptConfig()
+    d, v = model.emb_dim, model.item_vocab
+    _check_supported(topt, d)
+    dev = resolve_device(device)
+    model.to(dev)
+    n = sample.rows
+    bs = min(cfg.batch_size, n)
+    n_batches = -(-n // bs)
+    n_pad = n_batches * bs
+
+    # ---- device-resident dataset (padded tail rows carry weight 0) -------
+    def pad_rows(a: np.ndarray, fill=0) -> torch.Tensor:
+        if n_pad > n:
+            a = np.concatenate(
+                [a, np.full((n_pad - n,) + a.shape[1:], fill, a.dtype)])
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    d_prof = pad_rows(sample.user_profile.astype(np.float32))
+    d_bids = pad_rows(sample.behavior_ids.astype(np.int32), fill=-1)
+    d_iids = pad_rows(sample.item_ids.astype(np.int32))
+    d_ctx = pad_rows(sample.ctx.astype(np.float32))
+    d_y = pad_rows(np.asarray(sample.labels, np.float32).ravel())
+    d_w = torch.cat([torch.ones(n, device=dev),
+                     torch.zeros(n_pad - n, device=dev)])
+
+    # ---- params: dense tower via the solver, table via row updates -------
+    n_prev = len(resume_from.loss_curve) if resume_from is not None else 0
+    gen = trainer_generator(cfg, n_prev, dev)
+    if resume_from is not None:
+        if resume_from.packed_group > 1:
+            raise NotImplementedError(
+                "resuming a grouped-line result comes with grouped-line "
+                "training (ROADMAP A3)")
+        if resume_from.model is not model:
+            model.load_state_dict(resume_from.model.state_dict())
+        table = resume_from.table[:v].to(dev)
+        acc = (resume_from.acc[:v].to(dev) if resume_from.acc is not None
+               else torch.zeros(v, device=dev))
+    else:
+        table = model.init_params(gen)
+        acc = torch.zeros(v, device=dev)
+    table = pack_table(table, acc)         # [V, 128]: w | acc | pad, fresh
+    del acc
+
+    params = model.param_leaves()
+    solver = make_trainer_solver(cfg)
+    if resume_from is not None and resume_from.opt_state is not None:
+        opt_state = [x.to(dev) for x in resume_from.opt_state]
+        _check_opt_state(opt_state, solver.init(params))
+    else:
+        opt_state = solver.init(params)
+
+    best, no_improve = float("inf"), 0
+    update_overflow_max = 0
+    loss_curve: list[float] = []
+    epoch_times: list[float] = []
+    for epoch in range(cfg.epochs):
+        te = time.perf_counter()
+        perm = epoch_order(gen, n_pad, cfg.shuffle, dev)
+        losses, overs = [], []
+        for b in range(n_batches):
+            idx = perm[b * bs:(b + 1) * bs]
+            loss, over, opt_state = train_step(
+                model, table, solver, opt_state, d_prof[idx], d_bids[idx],
+                d_iids[idx], d_ctx[idx], d_y[idx], d_w[idx], topt, gen)
+            losses.append(loss)
+            overs.append(over)
+        # the epoch's one host sync: mean loss and max overflow together
+        cost, over = torch.stack([torch.stack(losses).mean(),
+                                  torch.stack(overs).max().float()]).tolist()
+        over = int(over)
+        if over > update_overflow_max:
+            update_overflow_max = over
+            log.warning(
+                "fused compact_cap overflow: %d unique rows dropped in a "
+                "batch — raise TableOptConfig.compact_cap (currently %d)",
+                over, topt.compact_cap)
+        epoch_times.append(time.perf_counter() - te)
+        loss_curve.append(cost)
+        if cfg.verbose:
+            log.info("epoch %d | cost %.6f | %.2fs", epoch, cost,
+                     epoch_times[-1])
+        if cost < best - cfg.tol:
+            best, no_improve = cost, 0
+        else:
+            no_improve += 1
+        if cfg.early_stop and no_improve >= cfg.early_stop:
+            break
+
+    if resume_from is not None:
+        loss_curve = resume_from.loss_curve + loss_curve
+    weights = table[:, :d].contiguous()    # K1 takes contiguous tables only
+    acc = table[:, d].contiguous()
+    del table
+    return TrainedScanned(model=model, table=weights, loss_curve=loss_curve,
+                          epoch_times=epoch_times, opt_state=opt_state,
+                          acc=acc, update_overflow_max=update_overflow_max)
+
+
+def _check_opt_state(state: list[torch.Tensor],
+                     template: list[torch.Tensor]) -> None:
+    if len(state) != len(template) or any(
+            tuple(s.shape) != tuple(t.shape) for s, t in zip(state, template)):
+        raise ValueError(
+            "solver state does not match the trainer's solver: "
+            f"{[tuple(s.shape) for s in state]} vs "
+            f"{[tuple(t.shape) for t in template]}")
+
+
 def save_scanned_checkpoint(path, trained: TrainedScanned,
-                            trainer_config: Optional[dict] = None) -> None:
-    """Write meta.json, dense.npz and table.npz. `trainer_config` is
-    stored as given (a dict of the JAX TrainerConfig fields, or None).
-    The dense optimizer state comes with the training slice."""
+                            trainer_config=None) -> None:
+    """Write meta.json, dense.npz, table.npz and (when the result has a
+    solver state) opt_state.npz. `trainer_config` is a TrainerConfig, a
+    dict of its fields, or None; the JAX loader restores the solver state
+    only when it is given."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     m = trained.model
+    if dataclasses.is_dataclass(trainer_config):
+        trainer_config = dataclasses.asdict(trainer_config)
     meta = {"model_config": m.config(), "loss_curve": trained.loss_curve,
             "trainer_config": trainer_config}
     (path / "meta.json").write_text(json.dumps(meta))
@@ -105,13 +496,20 @@ def save_scanned_checkpoint(path, trained: TrainedScanned,
                else np.zeros(0, np.float32))
         np.savez(path / "table.npz", table=trained.table[:v].cpu().numpy(),
                  acc=acc)
+    if trained.opt_state is not None:
+        np.savez(path / "opt_state.npz",
+                 **{str(i): x.cpu().numpy()
+                    for i, x in enumerate(trained.opt_state)})
 
 
 def load_scanned_checkpoint(path, device: str | torch.device = "cuda"
                             ) -> TrainedScanned:
     """Load a scanned checkpoint written by either package onto
     `device`. The model computes in float32: the checkpoint, like the JAX
-    package's, does not record the compute dtype."""
+    package's, does not record the compute dtype. The solver state is
+    loaded whenever opt_state.npz exists, and checked against the
+    checkpoint's trainer config when it has one (the JAX loader skips the
+    state without a trainer config, ROADMAP C)."""
     dev = resolve_device(device)
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
@@ -124,10 +522,69 @@ def load_scanned_checkpoint(path, device: str | torch.device = "cuda"
         table = torch.from_numpy(z["table"]).to(dev, torch.float32)
         acc = (torch.from_numpy(z["acc"]).to(dev) if z["acc"].size
                else None)
-    if (path / "opt_state.npz").exists():
-        warnings.warn(
-            f"{path / 'opt_state.npz'} was not loaded: the dense optimizer "
-            "state comes with the training slice of goctr_tpu_torch",
-            stacklevel=2)
+    opt_state = None
+    opt_path = path / "opt_state.npz"
+    if opt_path.exists():
+        with np.load(opt_path) as z:
+            opt_state = [torch.from_numpy(np.array(z[str(i)])).to(dev)
+                         for i in range(len(z.files))]
+        tc = meta.get("trainer_config")
+        if tc is not None:
+            _check_opt_state(opt_state, make_trainer_solver(
+                TrainerConfig(**tc)).init(model.param_leaves()))
     return TrainedScanned(model=model, table=table,
-                          loss_curve=meta["loss_curve"], acc=acc)
+                          loss_curve=meta["loss_curve"], opt_state=opt_state,
+                          acc=acc)
+
+
+def model_bytes_per_example(model: SparseCTR, T: int,
+                            update_mode: str = "dedup",
+                            real_frac: float = 1.0,
+                            compact_frac: float = 0.0) -> float:
+    """Analytic device-memory bytes per example of the scanned trainer (f32
+    table), as the JAX package counts them: embedding gather (T+1 rows),
+    the row update of the same rows, accumulator traffic, the dataset-row
+    gather, and the dedup pipeline's own streams (id sort, row permute,
+    cumsum, boundary gather, grad packing)."""
+    D = model.emb_dim
+    row = D * 4.0
+    packed = 128.0 * 4.0                    # packed 128-lane rows (w|acc|pad)
+    rows = T + 1.0
+    is_packed = update_mode in ("fused", "runfused", "fused2")
+    gather = rows * (packed if is_packed else row)
+    scatter = 2.0 * rows * (packed if is_packed else row)
+    if is_packed:
+        # only real (unique-id) targets move a read/write pair; junk rows
+        # are skipped. real_frac = uniques / rows (workload-dependent)
+        scatter *= real_frac
+    acc = 0.0 if is_packed else rows * 4.0 * 3.0
+    dataset = (model.u_profile_dim + model.ctx_dim + 2) * 4.0 + T * 4.0
+    pipeline = 0.0
+    if update_mode == "sorted":
+        pipeline = rows * (8.0 + 2.0 * row)
+    elif update_mode == "runfused":
+        pipeline = rows * (8.0 + 3.0 * row)
+    elif update_mode == "fused2":
+        pipeline = rows * (8.0 + 5.0 * row)
+    elif update_mode == "fused" and compact_frac:
+        # id sort + rank sort + row permute + cumsum; only the compact_frac
+        # selected slots move the c_sel gather and the grad pack + stream
+        pipeline = (rows * (16.0 + 4.0 * row)
+                    + compact_frac * rows * (2.0 * row + 2.0 * packed))
+    elif update_mode in ("dedup", "fused"):
+        pipeline = rows * (8.0 + 7.0 * row)
+        if update_mode == "fused":
+            pipeline += rows * 2.0 * packed
+    return gather + scatter + acc + dataset + pipeline
+
+
+def model_flops_per_example(model: SparseCTR, T: int) -> float:
+    """Analytic training FLOPs per example (fwd + bwd ≈ 3× fwd for the
+    tower matmuls, plus the attention pool's vector ops; the embedding
+    gather and scatter move bytes, not FLOPs)."""
+    D = model.emb_dim
+    dims = model.layer_dims
+    macs = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    mlp_train = 6.0 * macs                       # 2 FLOPs/MAC × 3 (fwd+bwd)
+    attn = 3.0 * (4.0 * T * D)                   # cos-sim + gate + pool
+    return mlp_train + attn

@@ -13,10 +13,21 @@ float32, cast back to the compute dtype between layers, float32 logits.
 The DIN pool runs through kernel K2 (ops/kernels/din_attention.py),
 which computes in float32 and rounds only its output, where the JAX
 inline pool rounds each bf16 intermediate: at bf16 the two agree to
-bf16 precision, not bit for bit.
+bf16 precision, not bit for bit. Its gradient is kernel K2b, through
+the autograd Function DinAttentionPool.
 
-`apply()` with the sharded lookup comes with the multi-GPU slice, and
-dropout with the training slice: this module computes eval-mode logits.
+Training mode (`train=True` with a `generator`) applies inverted dropout
+after each hidden activation, as the JAX tower does; the keep mask comes
+from the generator, so it cannot match JAX's stream. A bf16 product has
+no PyTorch derivative, so `matmul_f32` goes through an autograd Function
+with the backward JAX computes for `dot(x_bf16, w_bf16,
+preferred_element_type=f32)` (read from its jaxpr): dx = bf16(g · wᵀ),
+dw = bf16(xᵀ · g), both products in float32 from the float32 cotangent
+g. The weight's `.to(bf16)` then widens dw back to float32, as JAX's
+`astype(cd)` does. These are plain matmuls, left to cuBLAS on the card
+(with TF32 off) as JAX leaves them to XLA.
+
+`apply()` with the sharded lookup comes with the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -24,9 +35,9 @@ import torch
 from torch import nn
 
 from goctr_tpu_torch.core.dtypes import resolve_device
-from goctr_tpu_torch.models.base import glorot
+from goctr_tpu_torch.models.base import dropout, glorot
 from goctr_tpu_torch.ops.activations import ACTIVATIONS
-from goctr_tpu_torch.ops.kernels.din_attention import din_attention_pool
+from goctr_tpu_torch.ops.kernels.din_attention import DinAttentionPool
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
     init_packed_table_grouped,
 )
@@ -34,17 +45,36 @@ from goctr_tpu_torch.ops.kernels.row_optimizer import (
 POOLINGS = ("din_attention", "mean")
 
 
+class _MatmulF32(torch.autograd.Function):
+    """bf16 × bf16 → f32 product with JAX's backward (module docstring).
+    On the card `torch.mm(..., out_dtype=float32)` (f32 accumulation, no
+    bf16 rounding of the result). The CPU has no such overload; there the
+    operands are widened first, which gives the same product, since a
+    product of two bf16 values is exact in float32."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        if h.is_cuda:
+            return torch.mm(h, w, out_dtype=torch.float32)
+        return h.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = (g @ w.float().t()).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (h.float().t() @ g).to(w.dtype)
+        return dh, dw
+
+
 def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """h @ w with float32 output from compute-dtype operands. On the card
-    a bf16 product goes to `torch.mm(..., out_dtype=float32)` (f32
-    accumulation, no bf16 rounding of the result). The CPU has no such
-    overload; there the operands are widened first, which gives the same
-    product, since a product of two bf16 values is exact in float32."""
+    """h @ w with a float32 result from compute-dtype operands."""
     if h.dtype == torch.float32:
         return h @ w
-    if h.is_cuda:
-        return torch.mm(h, w, out_dtype=torch.float32)
-    return h.float() @ w.float()
+    return _MatmulF32.apply(h, w)
 
 
 class SparseCTR(nn.Module):
@@ -125,12 +155,21 @@ class SparseCTR(nn.Module):
                             device=generator.device)
         return table.mul_(0.01)
 
+    def param_leaves(self) -> list[nn.Parameter]:
+        """The dense parameters in JAX leaf order (att0, bias.*, mlp.*):
+        the order of `jax.tree.leaves` of the JAX dense-params dict, which
+        the solvers' state follows (optim/optimizers.py)."""
+        return [self.att0, *self.bias, *self.mlp]
+
     def apply_pooled(self, profile: torch.Tensor, behaviors: torch.Tensor,
                      item: torch.Tensor, ctx: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+                     mask: torch.Tensor, *, train: bool = False,
+                     generator: torch.Generator | None = None
+                     ) -> torch.Tensor:
         """Logits [B] over pre-gathered embeddings: behaviors [B, T, D],
         item [B, D], mask [B, T] float32 (1 for real behaviors, 0 for -1
-        pads), profile [B, U], ctx [B, C]."""
+        pads), profile [B, U], ctx [B, C]. Differentiable with respect to
+        the dense parameters and the gathered rows."""
         cd = self.compute_dtype
         behaviors = behaviors.to(cd)
         item = item.to(cd)
@@ -141,13 +180,15 @@ class SparseCTR(nn.Module):
             pooled = (behaviors * m[..., None]).sum(1) / denom
         else:
             # DIN-style gated attention pool (din.go:231-298 semantics)
-            pooled = din_attention_pool(behaviors, item, self.att0,
-                                        mask.float())
-        return self._tower(profile, pooled, item, ctx)
+            pooled = DinAttentionPool.apply(behaviors, item, self.att0,
+                                            mask.float())
+        return self._tower(profile, pooled, item, ctx, train=train,
+                           generator=generator)
 
     forward = apply_pooled
 
-    def _tower(self, profile, pooled, item, ctx) -> torch.Tensor:
+    def _tower(self, profile, pooled, item, ctx, *, train: bool = False,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         """Dense MLP over [profile | pooled behaviors | item | ctx]."""
         cd = self.compute_dtype
         h = torch.cat([profile.to(cd), pooled.to(cd), item.to(cd),
@@ -157,5 +198,6 @@ class SparseCTR(nn.Module):
         for i, (w, b) in enumerate(zip(self.mlp, self.bias)):
             h = matmul_f32(h, w.to(cd)) + b
             if i < n_layers - 1:
-                h = act(h).to(cd)
+                h = dropout(act(h), self.dropout_rate, generator,
+                            train).to(cd)
         return h[:, 0].float()   # logits

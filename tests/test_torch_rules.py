@@ -56,10 +56,16 @@ def test_scan_sees_imports():
 
 def test_every_kernel_source_is_built_for_sm90a():
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["din_attention", "row_gather"]
+    assert sources == ["compact_runsums", "din_attention",
+                       "din_attention_bwd", "row_gather", "row_scatter"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in sources:
         lib = _build.library_path(name)
         assert lib.parent == PKG / "_build" and name in lib.name
-        # each source names the TPU kernel it replaces
-        assert "goctr_tpu/ops/pallas/" in (_build.CSRC / f"{name}.cu").read_text()
+        # each source names the TPU kernel it replaces, its bound on the
+        # card, its design and its plain version
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "goctr_tpu/ops/pallas/" in text
+        for part in ("What bounds it on the H100", "Design:",
+                     "Plain version"):
+            assert part in text, (name, part)

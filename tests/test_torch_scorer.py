@@ -15,6 +15,7 @@ import threading
 import urllib.error
 import urllib.request
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,9 +198,13 @@ def test_predict_matches_jax(trained, trained_grouped):
 def test_jax_checkpoint_loads_in_port_and_back(trained, tmp_path):
     r, sample = trained
     jax_save(tmp_path / "jax", r, TrainerConfig(batch_size=512, epochs=2))
-    with pytest.warns(UserWarning, match="opt_state.npz"):
-        pr = load_scanned_checkpoint(tmp_path / "jax", device="cpu")
+    pr = load_scanned_checkpoint(tmp_path / "jax", device="cpu")
     assert pr.loss_curve == r.loss_curve and pr.acc is not None
+    # the solver state comes across leaf for leaf
+    leaves = jax.tree.leaves(r.opt_state)
+    assert len(pr.opt_state) == len(leaves)
+    for got, want in zip(pr.opt_state, leaves):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     prof, bids, ctx, cands = _requests(sample, [1, 2], (30, 140), 9)
     want = JaxScorer.from_scanned(r).score_batch(prof, bids, ctx, cands)
     _assert_scores(DeviceScorer.from_scanned(pr, device="cpu").score_batch(
