@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Phases, in order; any failure raises and the script exits nonzero:
-  1. build   — compile every CUDA kernel of the serving path from
+  1. build   — compile every CUDA kernel of the port from
                goctr_tpu_torch/csrc/ (one nvcc per source, in parallel);
                print the card's name and power limit.
   2. kernels — each kernel against its plain PyTorch version on the card,
@@ -32,17 +32,34 @@ Phases, in order; any failure raises and the script exits nonzero:
                JAX bench's compact_cap rule) on 16 × 65,536 rows of the
                JAX bench workload (planted parity, zipf s = 1.05, noisy
                labels): 3 epochs with compact_impl="xla" and 1 epoch from
-               the same start with "kernel" (the main path: launch counts
-               reset just before, read just after). K1 (the forward
-               gather and the row update's read), K2, K2b, K4 and K9 are
-               held against their plain versions on the first step's own
-               inputs, with controls that must exceed each limit; the
-               xla and kernel runs' first-epoch losses agree, and wrong
-               compactions (controls) move that loss past the limit; a small
-               f32 model trained on the card is held against the port on
-               the CPU; a profiled step gives the device-time breakdown;
-               the trained result serves through DeviceScorer with the
-               phase-3 score check and controls.
+               the same start with "kernel", and 1 epoch with the one-pass
+               row update rmw_impl="kernel" (K5) (the main path: launch
+               counts reset just before, read just after). K1 (the
+               forward gather and the row update's read), K2, K2b, K4, K5
+               and K9 are held against their plain versions on the first
+               step's own inputs, with controls that must exceed each
+               limit, and K5, its plain version and the split update are
+               timed on them; the xla, kernel-compaction and K5 runs'
+               first-epoch losses agree, and wrong compactions (controls)
+               move that loss past the limit; small f32 models trained on
+               the card are held against the port on the CPU; a profiled
+               step gives the device-time breakdown; the trained result
+               serves through DeviceScorer with the phase-3 score check
+               and controls.
+  7. grouped training — the 100M × 16 configuration (G = 7 rows per
+               128-lane line, 7.3 GB of lines drawn directly) trained at
+               batch 65,536 on the JAX bench's 1,000,000-row workload for
+               this configuration: 3 epochs with the split line update
+               (K1 read, torch, K4) and 1 epoch from the same start with
+               the one-pass kernels (K6, K9) — the main path, counts reset
+               just before and read just after. K1, K2, K2b, K9, K4 and K6
+               are held against their plain versions on the first step's
+               own inputs, with controls; the first-epoch losses agree,
+               and K6 writing each update to its neighbour slot's line
+               (control) moves that loss past the limit; small grouped
+               f32 trainers on the card are held against the port on the
+               CPU; 3 profiled steps; the trained lines serve with the
+               score check and controls.
 Then it prints the card line, the `kernels` JSON line and, last,
 {"ok": true, "device": {...}}.
 
@@ -89,13 +106,17 @@ SCORE_ATOL_F32 = 1e-5
 # the trained headline's scores, kernels vs plain path: the same one-ulp
 # pooled-row differences as SCORE_ATOL_BF16, but trained rows and weights
 # are larger, so a flipped bf16 rounding moves a score further (8.4e-5 on
-# an H100, PERF.md); its controls read 3.7e-3 and more
+# an H100, PERF.md); its controls read 3.7e-3 and more. The trained
+# 100M x 16 lines are held to it too (the same one-ulp differences at
+# D = 16).
 SCORE_ATOL_TRAINED = 3e-4
 # training phase: the JAX bench's depth except rows (bench.py:139-160)
 TRAIN_BATCH = 65_536
 TRAIN_ROWS = 16 * TRAIN_BATCH
 TRAIN_EPOCHS = 3
 TABLE_LR = 2.0
+# grouped training: the JAX bench's rows for 100M x 16 (bench.py:146-147)
+GROUPED_TRAIN_ROWS = 1_000_000
 # K2b vs its plain version (bf16 d_behaviors / d_item): both round an f32
 # value that agrees to a few f32 ulps, so one bf16 ulp (rtol 2^-7); where
 # the three terms of a gradient cancel, the f32 values themselves differ
@@ -617,36 +638,44 @@ def within(torch, got, want, rtol, atol):
 def first_step(torch, start, sample, cfg, topt, dev):
     """What each kernel of the training path gets in the main path's first
     step, rebuilt with the trainer's own functions from the same start:
-    the batch of the first epoch's first indices, K1's ids and the rows it
-    gathered, K2's output and K2b's inputs (the gathered rows, att0, mask
-    and the tower's gradient of the pooled rows), K9's sorted stream, and
-    K4's targets and new rows."""
+    the batch of the first epoch's first indices (padded rows as the
+    trainer pads them), K1's ids and the rows it gathered, K2's output and
+    K2b's inputs (the gathered rows, att0, mask and the tower's gradient
+    of the pooled rows), K9's sorted stream, and the row update's inputs:
+    a copy of the packed table ([V, 128] rows, or grouped lines), its
+    targets (slots at G = 1, lines below), the update rows K5 / K6 take
+    and the new lines the split update writes with K4."""
+    import copy
+
     from goctr_tpu_torch.ops.kernels.din_attention import din_attention_pool
     from goctr_tpu_torch.ops.kernels.row_optimizer import (
-        pack_table, updated_rows)
+        group_size, pack_grads, pack_table, updated_lines)
     from goctr_tpu_torch.parallel import scanned as sc
-    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 
     V, D = start.model.item_vocab, start.model.emb_dim
-    bs = cfg.batch_size
+    G = group_size(D)
+    n, bs = sample.rows, cfg.batch_size
     gen = sc.trainer_generator(cfg, 0, dev)
-    idx = sc.epoch_order(gen, sample.rows, cfg.shuffle, dev)[:bs].cpu()
-    idx = idx.numpy()
+    idx = sc.epoch_order(gen, -(-n // bs) * bs, cfg.shuffle, dev)[:bs]
+    idx = idx.cpu().numpy()
+    real = idx < n
 
-    def col(a):
-        return torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev)
+    def col(a, fill=0):
+        out = np.full((bs,) + a.shape[1:], fill, a.dtype)
+        out[real] = a[idx[real]]
+        return torch.from_numpy(out).to(dev)
 
-    prof, bids, iids = col(sample.user_profile), col(sample.behavior_ids), \
-        col(sample.item_ids)
-    ctx, y = col(sample.ctx), col(sample.labels)
-    w = torch.ones(bs, device=dev)
-    model = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev)
-    model.load_state_dict(start.model.state_dict())
-    table = pack_table(start.table, torch.zeros(V, device=dev))
+    prof, bids, iids = col(sample.user_profile), \
+        col(sample.behavior_ids, -1), col(sample.item_ids)
+    ctx, y = col(sample.ctx), col(np.asarray(sample.labels, np.float32))
+    w = torch.from_numpy(real.astype(np.float32)).to(dev)
+    model = copy.deepcopy(start.model)
+    table = (start.table.clone() if start.packed_group > 1
+             else pack_table(start.table, torch.zeros(V, device=dev)))
     T = bids.shape[1]
     with torch.enable_grad():
-        emb = sc.gather_batch_rows(model, table, bids, iids,
-                                   False).requires_grad_()
+        emb = sc.gather_batch_rows(model, table, bids, iids, False,
+                                   G).requires_grad_()
         beh = emb.detach()[:bs * T].view(bs, T, D)
         item = emb.detach()[bs * T:]
         mask = (bids >= 0).float()
@@ -660,47 +689,58 @@ def first_step(torch, start, sample, cfg, topt, dev):
     g_flat = g_emb.float()
     s_ids, g_s = sc.sort_updates(ids_flat, g_flat, V)
     capr = sc.compact_slots(topt.compact_cap, s_ids.shape[0])
-    tgt, g_packed, _ = sc.update_stream(ids_flat, g_flat, topt, V)
-    new = updated_rows(table, tgt, g_packed, topt.lr, D, topt.kind,
-                       topt.eps)
+    tgt, rows, packed, _ = sc.update_rows(ids_flat, g_flat, topt, V)
+    if G > 1:
+        tgt, upd = sc.line_stream(tgt, rows, V)
+    else:
+        upd = packed if packed is not None else pack_grads(rows)
+    skip = table.shape[0] if G > 1 else V
+    new = updated_lines(table, tgt, upd, topt.lr, D, topt.kind, topt.eps, G)
     return {"pool": (dout.contiguous(), beh, item, att0, mask),
             "gather_ids": ids_flat.clamp_min(0), "emb": emb.detach(),
             "pooled": pooled.detach(),
             "s_ids": s_ids, "g_s": g_s, "capr": capr, "table": table,
-            "tgt": tgt, "new": new, "V": V, "D": D}
+            "tgt": tgt, "upd": upd, "new": new, "skip": skip, "group": G,
+            "topt": topt, "V": V, "D": D}
 
 
 def check_train_gather(torch, step):
     """K1 against its plain version at both of the training path's calls
     on the first step's inputs, bit-exact, each with a control (ids
     shifted by one) that must change some row: the forward gather of the
-    batch's ids from the packed [V, 128] table to bf16 (the rows the
-    trainer took, `emb`), and the row update's f32 read of all 128 lanes
-    of its target slots (`updated_rows`). Returns (max error, controls)."""
+    batch's ids to bf16 (the rows the trainer took, `emb`; group G on
+    grouped lines), and the split update's f32 read of all 128 lanes of
+    its targets (`updated_lines`). Returns (max error, controls)."""
     from goctr_tpu_torch.ops.kernels import row_gather as k1
     from goctr_tpu_torch.ops.kernels.row_optimizer import LANES
 
-    V, D, table = step["V"], step["D"], step["table"]
-    read_ids = step["tgt"].clamp(max=V - 1)        # as updated_rows reads
-    calls = (("forward", step["gather_ids"], D, torch.bfloat16, step["emb"]),
-             ("row-update read", read_ids, LANES, torch.float32, None))
+    V, D, G, table = step["V"], step["D"], step["group"], step["table"]
+    n_lines = table.shape[0]
+    read_ids = step["tgt"].clamp(max=n_lines - 1)  # as updated_lines reads
+    calls = (("forward", step["gather_ids"], G, D, torch.bfloat16,
+              step["emb"], V),
+             ("row-update read", read_ids, 1, LANES, torch.float32, None,
+              n_lines))
     err, ctl = 0.0, {}
-    for what, ids, dim, dt, got in calls:
+    for what, ids, group, dim, dt, got, ids_end in calls:
         if got is None:
-            got = k1.gather_rows(table, ids, dim=dim, out_dtype=dt)
-        want = k1.gather_rows_plain(table, ids, dim=dim, out_dtype=dt)
+            got = k1.gather_rows(table, ids, group=group, dim=dim,
+                                 out_dtype=dt)
+        want = k1.gather_rows_plain(table, ids, group=group, dim=dim,
+                                    out_dtype=dt)
         torch.cuda.synchronize()
         require(got.dtype == dt and torch.equal(got, want),
                 f"K1 training {what}: differs from plain")
         err = max(err, float((got.float() - want.float()).abs().max()))
-        wrong = k1.gather_rows_plain(table, (ids + 1) % V, dim=dim,
-                                     out_dtype=dt)
+        del want
+        wrong = k1.gather_rows_plain(table, (ids + 1) % ids_end,
+                                     group=group, dim=dim, out_dtype=dt)
         ctl[f"K1 {what} ids shifted"] = int((wrong != got).any(1).sum())
         require(ctl[f"K1 {what} ids shifted"] > 0,
                 f"K1 training {what} control: shifted ids give the same rows")
-        log(f"[train-kernels] K1 {what}: {ids.numel()} ids, dim {dim} "
-            f"{str(dt).split('.')[-1]} from [{V}, {LANES}]: bit-exact vs "
-            f"plain; control: ids shifted by one change "
+        log(f"[train-kernels] K1 {what}: {ids.numel()} ids, group {group}, "
+            f"dim {dim} {str(dt).split('.')[-1]} from {tuple(table.shape)}: "
+            f"bit-exact vs plain; control: ids shifted by one change "
             f"{ctl[f'K1 {what} ids shifted']} rows")
     return err, ctl
 
@@ -757,6 +797,7 @@ def check_train_kernels(torch, step):
         f"rtol 2^-7 + {GRAD_ATOL_REL}·max; d_att0 rtol {ATT0_RTOL} + "
         f"{ATT0_ATOL_REL}·max); control: zeroed d_behaviors leaves "
         f"{ctl['K2b d_behaviors zeroed']} entries outside")
+    del got, want
     # K9
     s_ids, g_s, capr = step["s_ids"], step["g_s"], step["capr"]
     tgt, rows, over = k9.compact_runsums_block(s_ids, g_s, V, capr)
@@ -790,36 +831,98 @@ def check_train_kernels(torch, step):
         f"{int(over)}; targets equal, max run-sum err {errs['K9']:.3g} "
         f"(limit {RUNSUM_RTOL}·Σ|g|); control: zeroed hottest run leaves "
         f"{ctl['K9 hottest run zeroed']} entries outside")
-    # K4
-    table, tgt, new = step["table"], step["tgt"], step["new"]
-    got_t = k4.scatter_rows_packed(table.clone(), tgt, new, skip_ge=V)
-    want_t = k4.scatter_rows_packed_plain(table.clone(), tgt, new, skip_ge=V)
+    del rows, w_rows, abs_rows, zeroed, diff, lim
+    # K4 (tables are multi-GB: compare the touched lines, then check the
+    # rest by restoring them)
+    table, tgt, new, skip = step["table"], step["tgt"], step["new"], \
+        step["skip"]
+    got_t = k4.scatter_rows_packed(table.clone(), tgt, new, skip_ge=skip)
+    want_t = k4.scatter_rows_packed_plain(table.clone(), tgt, new,
+                                          skip_ge=skip)
     torch.cuda.synchronize()
     require(torch.equal(got_t, want_t), "K4: table differs from plain")
-    real = tgt < V
-    rows_hit = tgt[real].long()
-    errs["K4"] = float((got_t[rows_hit] - want_t[rows_hit]).abs().max())
-    touched = torch.zeros(V, dtype=torch.bool, device=table.device)
-    touched[rows_hit] = True
-    require(torch.equal(got_t[~touched], table[~touched]),
-            "K4: an untouched row changed")
     del want_t
-    shifted = torch.where(real, (tgt + 1) % V, tgt)
+    real = tgt < skip
+    hit = tgt[real].long()
+    errs["K4"] = float((got_t[hit] - new[real]).abs().max())
+    shifted = torch.where(real, (tgt + 1) % skip, tgt)
     wrong = k4.scatter_rows_packed_plain(table.clone(), shifted, new,
-                                         skip_ge=V)
-    ctl["K4 targets shifted"] = int((wrong != got_t).any(1).sum())
+                                         skip_ge=skip)
+    ctl["K4 targets shifted"] = int((wrong[hit] != got_t[hit]).any(1).sum())
+    del wrong
     require(ctl["K4 targets shifted"] > 0,
             "K4 control: shifted targets give the same table")
+    got_t[hit] = table[hit]
+    require(torch.equal(got_t, table), "K4: an untouched line changed")
+    del got_t
     log(f"[train-kernels] K4 {tgt.numel()} slots, {int(real.sum())} real "
-        f"rows into [{V}, 128]: bit-exact vs plain on every row, untouched "
-        f"rows unchanged; control: shifted targets change "
-        f"{ctl['K4 targets shifted']} rows")
+        f"lines into {tuple(table.shape)}: bit-exact vs plain, untouched "
+        f"lines unchanged; control: shifted targets change "
+        f"{ctl['K4 targets shifted']} lines")
     return errs, ctl
 
 
+def rmw_kernel(step):
+    """(name, kernel wrapper, plain version, split update) of the
+    one-pass row update of this step's table: K5 on [V, 128] rows, K6 on
+    grouped lines."""
+    from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+
+    if step["group"] > 1:
+        return ("K6", ro.apply_line_updates, ro.apply_line_updates_plain,
+                ro.apply_line_updates_split)
+    return ("K5", ro.apply_row_updates, ro.apply_row_updates_plain,
+            ro.apply_row_updates_split)
+
+
+def rmw_args(step):
+    t = step["topt"]
+    return dict(lr=t.lr, d=step["D"], kind=t.kind, eps=t.eps,
+                skip_ge=step["skip"])
+
+
+def check_rmw(torch, step):
+    """K5 or K6 against its plain version on the first step's update
+    stream (f32 TOL on every updated line; every other line unchanged),
+    with a control: the plain version with each real target shifted by
+    one line must leave entries outside the limit. Returns (max error,
+    controls)."""
+    name, kern, plain, _ = rmw_kernel(step)
+    table, tgt, upd = step["table"], step["tgt"], step["upd"]
+    kw = rmw_args(step)
+    got = kern(table.clone(), tgt, upd, **kw)
+    want = plain(table.clone(), tgt, upd, **kw)
+    torch.cuda.synchronize()
+    real = tgt < kw["skip_ge"]
+    hit = tgt[real].long()
+    err = max_err(torch, got[hit], want[hit], "float32",
+                  f"{name} updated lines")
+    del want
+    require(bool((got[hit] != table[hit]).any(1).all()),
+            f"{name}: an updated line kept its value")
+    shifted = torch.where(real, (tgt + 1) % kw["skip_ge"], tgt)
+    wrong = plain(table.clone(), shifted, upd, **kw)
+    atol, rtol = TOL["float32"]
+    ctl = {f"{name} targets shifted": within(torch, got[hit], wrong[hit],
+                                             rtol, atol)[0]}
+    del wrong
+    require(ctl[f"{name} targets shifted"] > 0,
+            f"{name} control: shifted targets pass the limit")
+    got[hit] = table[hit]
+    require(torch.equal(got, table), f"{name}: an untouched line changed")
+    log(f"[train-kernels] {name} {tgt.numel()} slots, {int(real.sum())} "
+        f"real lines of {tuple(table.shape)} ({kw['kind']}, d={kw['d']}, "
+        f"group {step['group']}) vs plain: max err {err:.3g} (tol atol="
+        f"{atol} rtol={rtol}), untouched lines unchanged; control: shifted "
+        f"targets leave {ctl[f'{name} targets shifted']} entries outside")
+    return err, ctl
+
+
 def time_train_kernels(torch, step):
-    """Device ms of K2b, K4 and K9 and their plain versions (and K4's
-    library call) on the first step's inputs, with their bounds."""
+    """Device ms of K2b, K9, K4 and K5 or K6 and their plain versions
+    (K4's library call; the split update beside the one-pass one) on the
+    first step's inputs, with their bounds. The timed updates run on the
+    step's own copy of the table."""
     from goctr_tpu_torch.ops.kernels import compact as k9
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.kernels import row_optimizer as k4
@@ -844,27 +947,45 @@ def time_train_kernels(torch, step):
             s_ids, g_s, V, capr), 1, iters=6),
         library_ms=None, bytes=n * 4 + n * D * 4 + capr * (512 + 4) + 4,
         flops=n * D)
-    table, tgt, new = step["table"], step["tgt"], step["new"]
-    real = tgt < V
+    table, tgt, new, skip = step["table"], step["tgt"], step["new"], \
+        step["skip"]
+    real = tgt < skip
     n_real = int(real.sum())
     ids_real, rows_real = tgt[real].long(), new[real]
     out["K4"] = dict(
         ms=device_ms(torch, lambda i: k4.scatter_rows_packed(
-            table, tgt, new, skip_ge=V), 1),
+            table, tgt, new, skip_ge=skip), 1),
         plain_ms=device_ms(torch, lambda i: k4.scatter_rows_packed_plain(
-            table, tgt, new, skip_ge=V), 1, iters=6),
+            table, tgt, new, skip_ge=skip), 1, iters=6),
         library_ms=device_ms(torch, lambda i: table.index_copy_(
             0, ids_real, rows_real), 1),
         bytes=tgt.numel() * 4 + n_real * 512 * 2, flops=0)
-    for name, r in out.items():
+    # the one-pass update: ids once; of each real line and its update row,
+    # the 32-byte sectors that hold the G·(D+1) live lanes, the line's read
+    # and written, the update row's read; ~8 f32 operations a live lane
+    name, kern, plain, split = rmw_kernel(step)
+    upd, kw = step["upd"], rmw_args(step)
+    live = step["group"] * (D + 1)
+    live_bytes = -(-4 * live // 32) * 32
+    out[name] = dict(
+        ms=device_ms(torch, lambda i: kern(table, tgt, upd, **kw), 1),
+        plain_ms=device_ms(torch, lambda i: plain(table, tgt, upd, **kw), 1,
+                           iters=6),
+        split_ms=device_ms(torch, lambda i: split(table, tgt, upd, **kw), 1),
+        library_ms=None, bytes=tgt.numel() * 4 + n_real * live_bytes * 3,
+        flops=n_real * live * 8)
+    for key, r in out.items():
         r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
                             r["flops"] / F32_FLOPS_PER_S) * 1e3
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / F32_FLOPS_PER_S else "operations")
         lib = ("" if r["library_ms"] is None
                else f", index_copy_ {r['library_ms']:.5f}")
-        log(f"[train-kernels] {name} device ms per call: kernel "
-            f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}{lib}, bound "
+        split_ = ("" if "split_ms" not in r else
+                  f", split update (K1 read + torch + K4) "
+                  f"{r['split_ms']:.5f}")
+        log(f"[train-kernels] {key} device ms per call: kernel "
+            f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}{lib}{split_}, bound "
             f"{r['bound_ms']:.5f} ({r['bytes']} B, {r['flops']} flop, "
             f"{r['bound_by']})")
     return out
@@ -874,16 +995,17 @@ def profile_train_steps(torch, result, sample, cfg, topt, dev, steps=3):
     """Device time by kernel and idle share over `steps` training steps of
     the trained result (a copy of its model, table and solver state),
     torch.profiler; plus the unprofiled step latency over 5 steps."""
+    import copy
+
     from torch.profiler import ProfilerActivity, profile
 
     from goctr_tpu_torch.ops.kernels.row_optimizer import pack_table
     from goctr_tpu_torch.parallel import scanned as sc
-    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 
     bs = cfg.batch_size
-    model = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev)
-    model.load_state_dict(result.model.state_dict())
-    table = pack_table(result.table, result.acc)
+    model = copy.deepcopy(result.model)
+    table = (result.table.clone() if result.packed_group > 1
+             else pack_table(result.table, result.acc))
     solver = sc.make_trainer_solver(cfg)
     state = [x.clone() for x in result.opt_state]
     batches = []
@@ -928,13 +1050,16 @@ def profile_train_steps(torch, result, sample, cfg, topt, dev, steps=3):
             "lat_ms": float(np.median(lat) * 1e3)}
 
 
-def small_train_check(torch, dev):
+def small_train_check(torch, dev, emb_dim, cases):
     """A small f32 model trained 3 epochs on the card (kernels) and by the
-    port on the CPU (plain versions) from the same start, for the dedup
-    front end and both compactions."""
+    port on the CPU (plain versions) from the same start, for each
+    (compact_cap, compact_impl, rmw_impl) of `cases`. At emb_dim < 64 the
+    table is grouped lines, kept in lines (GROUPED_RESIDENT_MIN_V lowered
+    for the check) and compared line for line."""
     from goctr_tpu_torch.models.trainer import TrainerConfig
-    from goctr_tpu_torch.parallel.scanned import (
-        TableOptConfig, TrainedScanned, train_sparse_scanned)
+    from goctr_tpu_torch.ops.kernels.row_optimizer import (
+        group_size, pack_table_grouped)
+    from goctr_tpu_torch.parallel import scanned as sc
     from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
     from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 
@@ -946,40 +1071,57 @@ def small_train_check(torch, dev):
         item_ids=rng.integers(0, vocab, n).astype(np.int32),
         ctx=rng.random((n, 2)).astype(np.float32),
         labels=(rng.random(n) > 0.5).astype(np.float32))
-    cfgd = dict(item_vocab=vocab, emb_dim=64, u_profile_dim=4, ctx_dim=2,
-                behavior_len=5, hidden=(16,))
+    cfgd = dict(item_vocab=vocab, emb_dim=emb_dim, u_profile_dim=4,
+                ctx_dim=2, behavior_len=5, hidden=(16,))
     m0 = SparseCTR(**cfgd, device="cpu")
     table0 = m0.init_params(torch.Generator().manual_seed(SEED))
+    G = group_size(emb_dim)
+    if G > 1:
+        table0 = pack_table_grouped(table0)
     worst = [0.0, 0.0]
-    for cap, impl in ((0, "xla"), (2048, "xla"), (2048, "kernel")):
-        out = {}
-        for d in ("cpu", dev):
-            m = SparseCTR(**cfgd, device="cpu")
-            m.load_state_dict(m0.state_dict())
-            out[str(d)] = train_sparse_scanned(
-                SparseCTR(**cfgd, device=d), sample,
-                TrainerConfig(batch_size=1024, epochs=3, early_stop=0,
-                              shuffle=False),
-                TableOptConfig(kind="adagrad", lr=0.3, compact_cap=cap,
-                               compact_impl=impl),
-                resume_from=TrainedScanned(model=m, table=table0.clone(),
-                                           loss_curve=[]), device=d)
-        c, g = out["cpu"], out[str(dev)]
-        lc = np.abs(np.array(g.loss_curve) - c.loss_curve) / np.abs(
-            c.loss_curve)
-        worst[0] = max(worst[0], float(lc.max()))
-        require(lc.max() <= TRAJ_LOSS_RTOL,
-                f"small trainer {impl}/{cap}: loss curves differ by "
-                f"{lc.max():.3g} (rtol {TRAJ_LOSS_RTOL})")
-        for name, x, y in (("table", g.table, c.table), ("acc", g.acc, c.acc)):
-            bad, err = within(torch, x.cpu(), y, TRAJ_TABLE_RTOL,
-                              TRAJ_TABLE_ATOL)
-            worst[1] = max(worst[1], err)
-            require(bad == 0, f"small trainer {impl}/{cap}: {name} "
-                              f"{bad} entries outside (max err {err:.3g})")
-    log(f"[train] small f32 trainer, card (kernels) vs CPU (plain), "
-        f"cap 0 / xla 2048 / kernel 2048, 3 epochs: max loss rel diff "
-        f"{worst[0]:.3g} (rtol {TRAJ_LOSS_RTOL}), max table/acc err "
+    resident_min = sc.GROUPED_RESIDENT_MIN_V
+    sc.GROUPED_RESIDENT_MIN_V = 0
+    try:
+        for cap, impl, rmw in cases:
+            out = {}
+            for d in ("cpu", dev):
+                m = SparseCTR(**cfgd, device="cpu")
+                m.load_state_dict(m0.state_dict())
+                out[str(d)] = sc.train_sparse_scanned(
+                    SparseCTR(**cfgd, device=d), sample,
+                    TrainerConfig(batch_size=1024, epochs=3, early_stop=0,
+                                  shuffle=False),
+                    sc.TableOptConfig(kind="adagrad", lr=0.3,
+                                      compact_cap=cap, compact_impl=impl,
+                                      rmw_impl=rmw),
+                    resume_from=sc.TrainedScanned(
+                        model=m, table=table0.clone(), loss_curve=[],
+                        packed_group=G), device=d)
+            c, g = out["cpu"], out[str(dev)]
+            require(g.packed_group == c.packed_group == G,
+                    f"small trainer: packed_group {g.packed_group}")
+            lc = np.abs(np.array(g.loss_curve) - c.loss_curve) / np.abs(
+                c.loss_curve)
+            worst[0] = max(worst[0], float(lc.max()))
+            what = f"small trainer D={emb_dim} {impl}/{cap}/{rmw}"
+            require(lc.max() <= TRAJ_LOSS_RTOL,
+                    f"{what}: loss curves differ by {lc.max():.3g} (rtol "
+                    f"{TRAJ_LOSS_RTOL})")
+            pairs = [("table", g.table, c.table)]
+            if G == 1:
+                pairs.append(("acc", g.acc, c.acc))
+            for name, x, y in pairs:
+                bad, err = within(torch, x.cpu(), y, TRAJ_TABLE_RTOL,
+                                  TRAJ_TABLE_ATOL)
+                worst[1] = max(worst[1], err)
+                require(bad == 0, f"{what}: {name} {bad} entries outside "
+                                  f"(max err {err:.3g})")
+    finally:
+        sc.GROUPED_RESIDENT_MIN_V = resident_min
+    log(f"[train] small f32 trainer D={emb_dim} (G={G}), card (kernels) vs "
+        f"CPU (plain), cap/compaction/rmw "
+        f"{[f'{c}/{i}/{r}' for c, i, r in cases]}, 3 epochs: max loss rel "
+        f"diff {worst[0]:.3g} (rtol {TRAJ_LOSS_RTOL}), max table/acc err "
         f"{worst[1]:.3g} (rtol {TRAJ_TABLE_RTOL}, atol {TRAJ_TABLE_ATOL})")
 
 
@@ -1033,115 +1175,176 @@ def compaction_controls(torch, sample, cfg, topt, start, dev, loss0):
     return readings
 
 
-def train_phase(torch, dev, gen, reqs, kernels):
-    """Phase 6; returns the kernels-line entries of K2b, K4 and K9 and
-    the max errors of K1 and K2 on the training path's inputs."""
-    import dataclasses
-
-    from goctr_tpu_torch.models.trainer import TrainerConfig
+def counted_kernels():
+    """The launch-counted wrappers of the training paths, by name."""
     from goctr_tpu_torch.ops.kernels import compact as k9
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.kernels import row_gather as k1
-    from goctr_tpu_torch.ops.kernels import row_optimizer as k4
+    from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+
+    return {f.__name__: f for f in (
+        k1.gather_rows, k2.din_attention_pool, k2.din_attention_pool_bwd,
+        ro.scatter_rows_packed, k9.compact_runsums_block,
+        ro.apply_row_updates, ro.apply_line_updates)}
+
+
+def line_update_controls(torch, sample, cfg, topt, start, dev, loss0):
+    """One epoch of the one-pass run from `start` with K6 writing each
+    update to the line of the slot before it (its line ids rolled by one:
+    still distinct), and the relative distance of its first-epoch loss
+    from `loss0`, the split run's. It must exceed LOSS_RTOL_IMPL, or the
+    loss check could not catch a wrong line update. Returns the reading."""
+    import dataclasses
+
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+
+    real = sc.apply_line_updates
+    try:
+        sc.apply_line_updates = (
+            lambda table, ids, upd, **kw: real(table, ids.roll(1, 0), upd,
+                                               **kw))
+        r = sc.train_sparse_scanned(
+            SparseCTR(**GROUPED, compute_dtype=torch.bfloat16, device=dev),
+            sample, dataclasses.replace(cfg, epochs=1),
+            dataclasses.replace(topt, rmw_impl="kernel",
+                                compact_impl="kernel"),
+            resume_from=start, device=dev)
+    finally:
+        sc.apply_line_updates = real
+    reading = abs(r.loss_curve[0] - loss0) / abs(loss0)
+    log(f"[grouped-train] line-update control, first-epoch loss rel diff "
+        f"from split (must exceed {LOSS_RTOL_IMPL}): K6 on the neighbour "
+        f"slot's line {reading:.3g}")
+    require(reading > LOSS_RTOL_IMPL,
+            f"line-update control: loss rel diff {reading:.3g} is inside "
+            f"the limit {LOSS_RTOL_IMPL}, which therefore cannot catch it")
+    return {"K6 neighbour line": reading}
+
+
+def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
+                small_cases, variants, controls):
+    """Phases 6 and 7: `model_cfg` trained at full width on `rows` rows of
+    the JAX bench workload, batch TRAIN_BATCH, from a start drawn from
+    `gen` (the table as the trainer keeps it: [V, D] rows, or grouped lines
+    when D packs G > 1 rows a line). On the first step's inputs, K1, K2,
+    K2b, K9, K4 and the one-pass update (K5 or K6) are held against their
+    plain versions and timed; `small_cases` are the small card-vs-CPU
+    trainers. The main path, counts reset just before and read just after:
+    TRAIN_EPOCHS epochs with the split update and xla compaction, and one
+    epoch from the same start for each (label, TableOptConfig change) of
+    `variants`, whose first-epoch losses must agree with the main run's;
+    `controls` shows that the limit catches a wrong update. Then 3
+    profiled steps, and the trained result serves. Returns (times, max
+    errors, main-path launches) of the kernels it checks."""
+    import dataclasses
+
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.ops.kernels.row_optimizer import group_size
     from goctr_tpu_torch.parallel.scanned import (
         TableOptConfig, TrainedScanned, train_sparse_scanned)
     from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
     from goctr_tpu_torch.serve.scorer import DeviceScorer
 
-    V, T = HEADLINE["item_vocab"], HEADLINE["behavior_len"]
-    t0 = time.perf_counter()
-    sample = make_workload(TRAIN_ROWS, V, T, HEADLINE["u_profile_dim"],
-                           HEADLINE["ctx_dim"], seed=SEED)
+    V, T, D = model_cfg["item_vocab"], model_cfg["behavior_len"], \
+        model_cfg["emb_dim"]
+    G = group_size(D)
+    t_phase = time.perf_counter()
+    sample = make_workload(rows, V, T, model_cfg["u_profile_dim"],
+                           model_cfg["ctx_dim"], seed=SEED)
     cap = bench_compact_cap(sample, TRAIN_BATCH)
-    log(f"[train] workload {TRAIN_ROWS} rows in "
-        f"{time.perf_counter() - t0:.1f} s; compact_cap {cap}")
+    steps = -(-rows // TRAIN_BATCH)
+    log(f"[{tag}] workload {rows} rows ({steps} steps of {TRAIN_BATCH}, "
+        f"the last with {steps * TRAIN_BATCH - rows} padded rows) in "
+        f"{time.perf_counter() - t_phase:.1f} s; compact_cap {cap}")
     cfg = TrainerConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
                         early_stop=0, lr=1e-3, shuffle=True, seed=SEED)
     topt = TableOptConfig(kind="adagrad", lr=TABLE_LR, compact_cap=cap,
                           compact_impl="xla")
-    model0 = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev)
-    start = TrainedScanned(model=model0, table=model0.init_params(gen),
-                           loss_curve=[])
+    model0 = SparseCTR(**model_cfg, compute_dtype=torch.bfloat16, device=dev)
+    start = TrainedScanned(model=model0,
+                           table=model0.init_params(gen, table_group=G),
+                           loss_curve=[], packed_group=G)
+    shape = tuple(start.table.shape)
+    log(f"[{tag}] start: table {shape} f32 "
+        f"({start.table.numel() * 4 / 1e9:.2f} GB), G={G}")
 
     step = first_step(torch, start, sample, cfg, topt, dev)
     errs, ctl = check_train_kernels(torch, step)
+    name, rmw, _, _ = rmw_kernel(step)
+    errs[name], c = check_rmw(torch, step)
+    ctl.update(c)
     times = time_train_kernels(torch, step)
     del step
-    small_train_check(torch, dev)
+    torch.cuda.empty_cache()
+    small_train_check(torch, dev, D, small_cases)
 
     # the main path: counts reset just before, read just after
-    counted = (k1.gather_rows, k2.din_attention_pool,
-               k2.din_attention_pool_bwd, k4.scatter_rows_packed,
-               k9.compact_runsums_block)
-    for f in counted:
+    path = ("gather_rows", "din_attention_pool", "din_attention_pool_bwd",
+            "scatter_rows_packed", "compact_runsums_block", rmw.__name__)
+    counted = counted_kernels()
+    for f in counted.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    r_xla = train_sparse_scanned(
-        SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev),
-        sample, cfg, topt, resume_from=start, device=dev)
-    r_ker = train_sparse_scanned(
-        SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev),
-        sample, dataclasses.replace(cfg, epochs=1),
-        dataclasses.replace(topt, compact_impl="kernel"),
-        resume_from=start, device=dev)
-    launches = {f.__name__: f.launches for f in counted}
+
+    def run(**change):
+        return train_sparse_scanned(
+            SparseCTR(**model_cfg, compute_dtype=torch.bfloat16, device=dev),
+            sample, dataclasses.replace(cfg, epochs=1) if change else cfg,
+            dataclasses.replace(topt, **change), resume_from=start,
+            device=dev)
+
+    r_main = run()
+    others = {what: run(**change) for what, change in variants}
+    launches = {k: f.launches for k, f in counted.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    require(all(v > 0 for v in launches.values()),
-            f"train: a kernel of the path was never launched {launches}")
-    steps = TRAIN_ROWS // TRAIN_BATCH
-    lc = r_xla.loss_curve
+    require(all(launches[k] > 0 for k in path),
+            f"{tag}: a kernel of the path was never launched {launches}")
+    for r in (r_main, *others.values()):
+        require(r.packed_group == G and tuple(r.table.shape) == shape
+                and (r.acc is None) == (G > 1),
+                f"{tag}: the result is not the trained table")
+        require(r.update_overflow_max == 0, f"{tag}: compact_cap overflowed")
+    lc = r_main.loss_curve
     require(all(np.isfinite(lc)) and lc[-1] < lc[0],
-            f"train: the loss does not fall {lc}")
-    require(r_xla.update_overflow_max == 0 and r_ker.update_overflow_max == 0,
-            "train: compact_cap overflowed")
-    rel = abs(r_ker.loss_curve[0] - lc[0]) / abs(lc[0])
-    require(rel <= LOSS_RTOL_IMPL,
-            f"train: first-epoch loss xla {lc[0]} vs kernel "
-            f"{r_ker.loss_curve[0]} (rel {rel:.3g} > {LOSS_RTOL_IMPL})")
-    steady = TRAIN_ROWS * (TRAIN_EPOCHS - 1) / sum(r_xla.epoch_times[1:])
-    log(f"[train] headline 10M x 64, batch {TRAIN_BATCH}, {steps} steps/"
-        f"epoch: loss curve (xla) {lc}, epoch s {r_xla.epoch_times}; "
-        f"kernel compaction epoch 1 loss {r_ker.loss_curve[0]} (rel diff "
-        f"{rel:.3g}, limit {LOSS_RTOL_IMPL}), {r_ker.epoch_times[0]:.3f} s; "
-        f"overflow 0; steady-state {steady:.1f} ex/s, step "
-        f"{sum(r_xla.epoch_times[1:]) / (steps * (TRAIN_EPOCHS - 1)) * 1e3:.3f}"
+            f"{tag}: the loss does not fall {lc}")
+    rel = {}
+    for what, r in others.items():
+        rel[what] = abs(r.loss_curve[0] - lc[0]) / abs(lc[0])
+        require(rel[what] <= LOSS_RTOL_IMPL,
+                f"{tag}: first-epoch loss split/xla {lc[0]} vs {what} "
+                f"{r.loss_curve[0]} (rel {rel[what]:.3g} > "
+                f"{LOSS_RTOL_IMPL})")
+    steady = rows * (TRAIN_EPOCHS - 1) / sum(r_main.epoch_times[1:])
+    log(f"[{tag}] V={V} D={D} (G={G}), batch {TRAIN_BATCH}, {steps} "
+        f"steps/epoch: loss curve (split, xla) {lc}, epoch s "
+        f"{r_main.epoch_times}; "
+        + "; ".join(f"{what} epoch 1 loss {r.loss_curve[0]} (rel diff "
+                    f"{rel[what]:.3g}), {r.epoch_times[0]:.3f} s"
+                    for what, r in others.items())
+        + f" (limit {LOSS_RTOL_IMPL}); overflow 0; steady-state "
+        f"{steady:.1f} ex/s, step "
+        f"{sum(r_main.epoch_times[1:]) / (steps * (TRAIN_EPOCHS - 1)) * 1e3:.3f}"
         f" ms; peak device memory {peak:.2f} GB; launches {launches}")
-    del r_ker
-    ctl.update(compaction_controls(torch, sample, cfg, topt, start, dev,
-                                   lc[0]))
-    prof = profile_train_steps(torch, r_xla, sample, cfg, topt, dev)
+    del others
+    ctl.update(controls(torch, sample, cfg, topt, start, dev, lc[0]))
+    del start
+    prof = profile_train_steps(torch, r_main, sample, cfg, topt, dev)
 
     # the trained result serves
-    scorer = DeviceScorer.from_scanned(r_xla, device=dev)
+    what = "trained headline" if G == 1 else "trained grouped"
+    scorer = DeviceScorer.from_scanned(r_main, device=dev)
     p0, b0, c0, k0 = batch(reqs, 0)
-    first, rate, _ = drive(torch, kernels, scorer, reqs, "trained headline")
+    first, rate, _ = drive(torch, kernels, scorer, reqs, what)
     check_scores(first, plain_scores(torch, scorer, p0, b0, c0, k0),
-                 SCORE_ATOL_TRAINED, "trained headline kernels vs plain")
-    ctl.update(check_controls(torch, scorer, first, p0, b0, c0, k0,
-                              "trained headline", SCORE_ATOL_TRAINED))
-    entries = []
-    for key, name, src, replaces, err in (
-            ("K2b", "din_attention_bwd", "din_attention_bwd.cu",
-             "goctr_tpu/parallel/sparse_ctr.py:128",
-             errs["K2b d_behaviors"]),
-            ("K4", "scatter_rows_packed", "row_scatter.cu",
-             "goctr_tpu/ops/pallas/row_optimizer.py:824", errs["K4"]),
-            ("K9", "compact_runsums_block", "compact_runsums.cu",
-             "goctr_tpu/ops/pallas/compact.py:129", errs["K9"])):
-        r = times[key]
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"goctr_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[{"K2b": "din_attention_pool_bwd",
-                                  "K4": "scatter_rows_packed",
-                                  "K9": "compact_runsums_block"}[key]],
-            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
-    log(f"[train] done: steady {steady:.1f} ex/s, profiled step device "
-        f"busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}; trained "
+                 SCORE_ATOL_TRAINED, f"{what} kernels vs plain")
+    ctl.update(check_controls(torch, scorer, first, p0, b0, c0, k0, what,
+                              SCORE_ATOL_TRAINED))
+    log(f"[{tag}] done in {time.perf_counter() - t_phase:.1f} s: steady "
+        f"{steady:.1f} ex/s, profiled step device busy "
+        f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}; trained "
         f"serving {rate:.1f} scores/s; controls {ctl}")
-    return entries, errs["K1"], errs["K2"]
+    return times, errs, launches
 
 
 def main() -> int:
@@ -1167,7 +1370,7 @@ def main() -> int:
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build("row_gather", "din_attention", "din_attention_bwd",
-                        "row_scatter", "compact_runsums")
+                        "row_scatter", "compact_runsums", "row_rmw")
     card = card_line()
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s; torch {torch.__version__} "
@@ -1300,9 +1503,53 @@ def main() -> int:
     http_check(scorer, reqs)
 
     # 6. train ------------------------------------------------------------
-    train_entries, k1_train_err, k2_train_err = train_phase(
-        torch, dev, gen, reqs, kernels)
-    k1_err, k2_err = max(k1_err, k1_train_err), max(k2_err, k2_train_err)
+    t6, e6, l6 = train_phase(
+        torch, dev, gen, reqs, kernels, "train", HEADLINE, TRAIN_ROWS,
+        small_cases=[(0, "xla", "split"), (2048, "xla", "split"),
+                     (2048, "kernel", "split"), (2048, "xla", "kernel")],
+        variants=[("kernel compaction", {"compact_impl": "kernel"}),
+                  ("K5 row update", {"rmw_impl": "kernel"})],
+        controls=compaction_controls)
+    torch.cuda.empty_cache()
+
+    # 7. grouped training ---------------------------------------------------
+    t7, e7, l7 = train_phase(
+        torch, dev, gen, g_reqs, kernels, "grouped-train", GROUPED,
+        GROUPED_TRAIN_ROWS,
+        small_cases=[(2048, "xla", "split"), (0, "xla", "kernel"),
+                     (2048, "kernel", "kernel")],
+        variants=[("one-pass (K6, K9)", {"rmw_impl": "kernel",
+                                         "compact_impl": "kernel"})],
+        controls=line_update_controls)
+    k1_err = max(k1_err, e6["K1"], e7["K1"])
+    k2_err = max(k2_err, e6["K2"], e7["K2"])
+    train_entries = []
+    for key, name, src, replaces, times, counts, count_name in (
+            ("K2b", "din_attention_bwd", "din_attention_bwd.cu",
+             "goctr_tpu/parallel/sparse_ctr.py:128", t6, l6,
+             "din_attention_pool_bwd"),
+            ("K4", "scatter_rows_packed", "row_scatter.cu",
+             "goctr_tpu/ops/pallas/row_optimizer.py:824", t6, l6,
+             "scatter_rows_packed"),
+            ("K9", "compact_runsums_block", "compact_runsums.cu",
+             "goctr_tpu/ops/pallas/compact.py:129", t6, l6,
+             "compact_runsums_block"),
+            ("K5", "row_rmw", "row_rmw.cu",
+             "goctr_tpu/ops/pallas/row_optimizer.py:176", t6, l6,
+             "apply_row_updates"),
+            ("K6", "line_rmw", "row_rmw.cu",
+             "goctr_tpu/ops/pallas/row_optimizer.py:699", t7, l7,
+             "apply_line_updates")):
+        r = times[key]
+        err_key = "K2b d_behaviors" if key == "K2b" else key
+        train_entries.append({
+            "name": name, "route": "cuda",
+            "source": f"goctr_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": counts[count_name],
+            "max_abs_err": max(e.get(err_key, 0.0) for e in (e6, e7)),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
 
     # result lines -------------------------------------------------------
     kernels_line = {"kernels": [
@@ -1326,7 +1573,9 @@ def main() -> int:
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "
         f"{min(ctl.values()):.3g}, grouped {min(g_ctl.values()):.3g}; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB since phase 7's main path; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

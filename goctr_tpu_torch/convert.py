@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
-from goctr_tpu_torch.ops.kernels.row_optimizer import LANES
+from goctr_tpu_torch.ops.kernels.row_optimizer import LANES, group_size
 from goctr_tpu_torch.parallel.scanned import TrainedScanned
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 
@@ -49,13 +49,24 @@ def scanned_from_jax(model: SparseCTR, flat: dict[str, np.ndarray],
                      loss_curve: list[float] | None = None,
                      device: str | torch.device = "cuda") -> TrainedScanned:
     """A JAX TrainedScanned's state as the port's: `flat` dense parameters
-    are loaded into `model` (moved to `device`), `table` is the [V, D]
-    table (the JAX result's unpacked table), `acc` its [V] adagrad
-    accumulator, `opt_state` the solver state's leaves in JAX leaf
-    order. The result can be passed to train_sparse_scanned as
-    resume_from, saved, or served."""
+    are loaded into `model` (moved to `device`), `table` is the JAX
+    result's table — [V, D] with `acc` its [V] adagrad accumulator, or a
+    grouped-resident result's [L, 128] lines (whose JAX `acc` is empty: it
+    lives in the lines), told apart by the shape — and `opt_state` the
+    solver state's leaves in JAX leaf order. The result can be passed to
+    train_sparse_scanned as resume_from, saved, or served."""
     dev = resolve_device(device)
-    dense, table_t = params_from_jax(flat, table, "plain", device=dev)
+    d = model.emb_dim
+    g = group_size(d)
+    shape = np.shape(table)
+    lines = g > 1 and len(shape) == 2 and shape[1] == LANES
+    if not lines and (len(shape) != 2 or shape[1] != d):
+        raise ValueError(f"table {shape} is neither [V, {d}] rows nor "
+                         f"[L, {LANES}] lines: emb_dim {d} packs {g} rows "
+                         "per line")
+    packed_group = g if lines else 1
+    dense, table_t = params_from_jax(
+        flat, table, "grouped" if lines else "plain", device=dev)
     model.to(dev)
     model.load_state_dict(dense)
     acc_t = (torch.from_numpy(np.array(acc, np.float32)).to(dev)
@@ -64,4 +75,5 @@ def scanned_from_jax(model: SparseCTR, flat: dict[str, np.ndarray],
              [torch.from_numpy(np.array(x)).to(dev) for x in opt_state])
     return TrainedScanned(model=model, table=table_t,
                           loss_curve=list(loss_curve or []),
-                          opt_state=state, acc=acc_t)
+                          opt_state=state, acc=acc_t,
+                          packed_group=packed_group)

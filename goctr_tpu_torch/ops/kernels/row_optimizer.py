@@ -1,7 +1,9 @@
-"""Packed embedding-table layouts and the split row update (port of
-goctr_tpu/ops/pallas/row_optimizer.py: LANES and ROWS_PER_STEP :47-48,
-pack/unpack :238-262, grouped lines :470-558, the split update and its
-write-only scatter :768-867, pack_grads :904-911).
+"""Packed embedding-table layouts and the row updates of the fused
+trainer (port of goctr_tpu/ops/pallas/row_optimizer.py: LANES and
+ROWS_PER_STEP :47-48, the one-pass row update apply_row_updates :146-229,
+pack/unpack :238-262, grouped lines and their one-pass update
+apply_line_updates :470-751, the split updates and their write-only
+scatter :768-901, pack_grads :904-911).
 
 Two layouts, bit for bit the JAX package's, so a table packed by one
 package unpacks in the other:
@@ -12,19 +14,33 @@ package unpacks in the other:
     lanes past G·(D+1), and rows past the vocab in the last line, are 0.
 
 The JAX package places lanes with 0/1 matmuls (a TPU tiling workaround);
-here the lanes are written directly, which gives the same bits.
+here the lanes are written directly, which gives the same bits. Its
+per-group adagrad spreads each group's accumulator over the group's
+weight lanes with a 0/1 matmul (`make_spread`); each output lane of that
+product has exactly one nonzero term, so reading the accumulator lane
+directly (`acc_lanes`) gives the same f32 value.
 
-The split row update (`apply_row_updates_split`, rmw_impl="split") reads
-the targeted packed rows with kernel K1, applies row adagrad or sgd in
-torch, and writes the rows back with kernel K4 (`scatter_rows_packed`,
-csrc/row_scatter.cu). Unlike the JAX functions, which return a new array,
-both update the table IN PLACE and return it: a [10M, 128] table is
-5.1 GB. On one stream the read finishes before K4 writes, and the rows K4
-writes are a fresh tensor, never a view of the table.
-`scatter_rows_packed` launches K4 for CUDA tensors and calls its plain
-version for CPU tensors; on any other device, or when the kernel cannot
-be built or launched, it raises. `scatter_rows_packed.launches` counts
-kernel launches.
+Two ways to apply one batch's update rows, the same arithmetic in f32
+(DLRM row-wise adagrad, per group on grouped lines, or sgd):
+
+  * split (rmw_impl="split"): read the targeted lines with kernel K1,
+    compute in torch, write them back with kernel K4
+    (`scatter_rows_packed`, csrc/row_scatter.cu) —
+    `apply_row_updates_split`, `apply_line_updates_split`;
+  * one pass (rmw_impl="kernel"): kernel K5 (`apply_row_updates`) on
+    packed rows, kernel K6 (`apply_line_updates`) on grouped lines, both
+    in csrc/row_rmw.cu: each line is read, updated and written back by
+    one warp.
+
+Unlike the JAX functions, which return a new array, all of them update
+the table IN PLACE and return it: a [10M, 128] table is 5.1 GB, the
+100M × 16 lines 7.3 GB. Every target below skip_ge must be distinct (the
+trainer's front ends sum duplicates first): K5 and K6 would race on a
+repeated line. The update rows are a tensor of their own, never a view
+of the table (the wrappers refuse one that aliases it). Each wrapper
+launches its kernel for CUDA tensors and calls its plain version for CPU
+tensors; on any other device, or when the kernel cannot be built or
+launched, it raises. `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -45,6 +61,12 @@ _SCATTER = "row_scatter"
 # (table, ids, rows, n, skip_ge, stream)
 _SCATTER_ARGTYPES = {"row_scatter": [ctypes.c_void_p] * 3
                      + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]}
+_RMW = "row_rmw"
+# (table, ids, updates, n, skip_ge, d, adagrad, lr, eps, stream)
+_RMW_SIGNATURE = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 \
+    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_RMW_ARGTYPES = {"row_rmw": _RMW_SIGNATURE, "line_rmw": _RMW_SIGNATURE}
+KINDS = ("adagrad", "sgd")
 _count_lock = threading.Lock()
 
 
@@ -213,28 +235,69 @@ def pack_grads(g: torch.Tensor) -> torch.Tensor:
     return gp
 
 
-def updated_rows(table: torch.Tensor, ids: torch.Tensor,
-                 g_packed: torch.Tensor, lr: float, d: int,
-                 kind: str = "adagrad", eps: float = 1e-8) -> torch.Tensor:
-    """The new packed rows of `ids` ([n, 128] f32, a fresh tensor): read
-    the current rows (K1; junk ids past the table read row V − 1) and
-    apply DLRM row-wise adagrad
+def lane_masks(d: int, group: int = 1,
+               device: torch.device | str = "cpu"):
+    """(m_w, m_acc): [128] f32 0/1 masks of the weight lanes and of the
+    accumulator lanes of a line that holds `group` (w | acc) groups of
+    width d. group 1 is the packed row (w lanes < d, acc lane d)."""
+    stride = d + 1
+    lane = torch.arange(LANES, device=device)
+    within = lane < group * stride
+    m_w = (within & (lane % stride < d)).float()
+    m_acc = (within & (lane % stride == d)).float()
+    return m_w, m_acc
 
-        acc' = acc + ‖g‖²,   w' = w − lr · g · rsqrt(acc' + eps)
 
-    or sgd (w' = w − lr · g) in float32, term by term as the JAX
-    apply_row_updates_split does. g_packed [n, 128] is (g | ‖g‖² | 0)."""
-    if kind not in ("adagrad", "sgd"):
+def acc_lanes(d: int, group: int,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """[128] int64 lane map: each weight lane → the accumulator lane of
+    its group; every other lane → itself (its weight mask is 0). The
+    JAX package's `make_spread` 0/1 matrix (:475-484) as an index."""
+    stride = d + 1
+    lane = torch.arange(LANES, device=device)
+    m_w, _ = lane_masks(d, group, device)
+    return torch.where(m_w > 0, lane // stride * stride + d, lane)
+
+
+def rmw_lines(cur: torch.Tensor, upd: torch.Tensor, lr: float, d: int,
+              kind: str = "adagrad", eps: float = 1e-8,
+              group: int = 1) -> torch.Tensor:
+    """New lines from the current lines `cur` and the update rows `upd`
+    ([n, 128] f32 each; upd's weight lanes carry Σg, its accumulator
+    lanes ‖Σg‖²), per group of the line:
+
+        acc' = acc + ‖Σg‖²,   w' = w − lr · Σg · rsqrt(acc' + eps)
+
+    (DLRM row-wise adagrad) or sgd (w' = w − lr · Σg), in f32 and term by
+    term as the JAX kernels compute them (row_optimizer.py:110-116,
+    :642-650). Every lane but the weight lanes keeps `cur + upd·m_acc`:
+    the JAX kernels subtract `scale · (upd·m_w)` = 0 there, the same value
+    while scale is finite, but NaN on grouped lines at eps = 0
+    (rsqrt(0) · 0); here those lanes stay finite."""
+    if kind not in KINDS:
         raise ValueError(f"unknown row optimizer {kind!r}")
-    lane = torch.arange(LANES, device=table.device)
-    m_w = (lane < d).float()
-    m_acc = (lane == d).float()
+    m_w, m_acc = lane_masks(d, group, cur.device)
+    weight = m_w > 0
+    if kind == "sgd":
+        return torch.where(weight, cur - lr * upd, cur)
+    r_acc = cur + upd * m_acc
+    if group == 1:
+        acc = r_acc[:, d:d + 1]
+    else:
+        acc = r_acc.index_select(1, acc_lanes(d, group, cur.device))
+    scale = lr * torch.rsqrt(acc + eps)
+    return torch.where(weight, r_acc - scale * upd, r_acc)
+
+
+def updated_lines(table: torch.Tensor, ids: torch.Tensor,
+                  upd: torch.Tensor, lr: float, d: int,
+                  kind: str = "adagrad", eps: float = 1e-8,
+                  group: int = 1) -> torch.Tensor:
+    """The new lines of `ids` ([n, 128] f32, a fresh tensor): the current
+    lines read with kernel K1 (junk ids past the table read the last
+    line), then `rmw_lines`."""
     cur = gather_rows(table, ids.clamp(max=table.shape[0] - 1), dim=LANES)
-    if kind == "adagrad":
-        r_acc = cur + g_packed * m_acc
-        scale = lr * torch.rsqrt(r_acc[:, d:d + 1] + eps)
-        return r_acc - scale * (g_packed * m_w)
-    return cur - lr * (g_packed * m_w)
+    return rmw_lines(cur, upd, lr, d, kind, eps, group)
 
 
 def apply_row_updates_split(table: torch.Tensor, ids: torch.Tensor,
@@ -242,7 +305,118 @@ def apply_row_updates_split(table: torch.Tensor, ids: torch.Tensor,
                             kind: str = "adagrad", eps: float = 1e-8,
                             skip_ge: int | None = None) -> torch.Tensor:
     """Split row update on the packed [V, 128] table, in place: the rows
-    of `updated_rows`, written back with K4. ids [n] int32 pairwise
-    distinct below skip_ge (junk targets past it are skipped)."""
-    new = updated_rows(table, ids, g_packed, lr, d, kind, eps)
+    of `updated_lines`, written back with K4. ids [n] int32 pairwise
+    distinct below skip_ge (junk targets past it are skipped); g_packed
+    [n, 128] is (g | ‖g‖² | 0)."""
+    new = updated_lines(table, ids, g_packed, lr, d, kind, eps)
     return scatter_rows_packed(table, ids, new, skip_ge=skip_ge)
+
+
+def apply_line_updates_split(table: torch.Tensor, line_ids: torch.Tensor,
+                             line_updates: torch.Tensor, lr: float, d: int,
+                             kind: str = "adagrad", eps: float = 1e-8,
+                             skip_ge: int | None = None) -> torch.Tensor:
+    """Split update of the grouped [L, 128] lines, in place: per-group
+    adagrad or sgd on the lines of `updated_lines`, written back with K4.
+    line_ids [n] int32 pairwise distinct below skip_ge; line_updates
+    [n, 128] lane-placed (each touched group's Σg on its weight lanes,
+    ‖Σg‖² on its accumulator lane)."""
+    new = updated_lines(table, line_ids, line_updates, lr, d, kind, eps,
+                        group_size(d))
+    return scatter_rows_packed(table, line_ids, new, skip_ge=skip_ge)
+
+
+def _rmw_plain(table, ids, upd, lr, d, kind, eps, skip_ge, group):
+    """Plain PyTorch version of K5 (group 1) and K6: `index_select` of
+    the clamped ids, `rmw_lines`, `index_put_` of the real rows, as the
+    JAX fallbacks (:204-229, :729-751)."""
+    if skip_ge is None:
+        skip_ge = table.shape[0]
+    cur = table.index_select(0, ids.clamp(0, table.shape[0] - 1).long())
+    new = rmw_lines(cur, upd, lr, d, kind, eps, group)
+    real = (ids >= 0) & (ids < skip_ge)
+    table.index_put_((ids[real].long(),), new[real])
+    return table
+
+
+def apply_row_updates_plain(table: torch.Tensor, ids: torch.Tensor,
+                            g_packed: torch.Tensor, lr: float, d: int,
+                            kind: str = "adagrad", eps: float = 1e-8,
+                            skip_ge: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K5 (`apply_row_updates`)."""
+    return _rmw_plain(table, ids, g_packed, lr, d, kind, eps, skip_ge, 1)
+
+
+def apply_line_updates_plain(table: torch.Tensor, line_ids: torch.Tensor,
+                             line_updates: torch.Tensor, lr: float, d: int,
+                             kind: str = "adagrad", eps: float = 1e-8,
+                             skip_ge: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K6 (`apply_line_updates`)."""
+    return _rmw_plain(table, line_ids, line_updates, lr, d, kind, eps,
+                      skip_ge, group_size(d))
+
+
+def _rmw(entry: str, plain, table, ids, upd, lr, d, kind, eps, skip_ge):
+    """Check, then launch kernel `entry` of csrc/row_rmw.cu on a CUDA
+    table or call `plain` on a CPU one. Returns True on a launch."""
+    if skip_ge is None:
+        skip_ge = table.shape[0]
+    if not 0 < d < LANES:
+        raise ValueError(f"the fused row update requires 0 < d < {LANES}, "
+                         f"got {d}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown row optimizer {kind!r}")
+    _check_scatter(table, ids, upd, skip_ge)
+    if table.device.type == "cpu":
+        plain(table, ids, upd, lr, d, kind, eps, skip_ge)
+        return False
+    if table.device.type != "cuda":
+        raise ValueError(f"no {entry} kernel for {table.device}")
+    n = ids.shape[0]
+    if n == 0:
+        return False
+    lib = _build.load(_RMW, _RMW_ARGTYPES)
+    code = getattr(lib, entry)(
+        table.data_ptr(), ids.data_ptr(), upd.data_ptr(), n, skip_ge, d,
+        int(kind == "adagrad"), lr, eps,
+        torch.cuda.current_stream(table.device).cuda_stream)
+    _build.check(lib, _RMW, code)
+    return True
+
+
+def apply_row_updates(table: torch.Tensor, ids: torch.Tensor,
+                      g_packed: torch.Tensor, lr: float, d: int,
+                      kind: str = "adagrad", eps: float = 1e-8,
+                      skip_ge: int | None = None) -> torch.Tensor:
+    """One-pass row update (kernel K5) of the packed [V, 128] table, in
+    place: each real row is read, updated (`rmw_lines`, group 1) and
+    written back. ids [n] int32 pairwise distinct below skip_ge (ids >=
+    skip_ge, which may point past the table, are skipped); g_packed
+    [n, 128] f32 (g | ‖g‖² | 0). Returns the table."""
+    if _rmw("row_rmw", apply_row_updates_plain, table, ids, g_packed, lr,
+            d, kind, eps, skip_ge):
+        with _count_lock:
+            apply_row_updates.launches += 1
+    return table
+
+
+apply_row_updates.launches = 0
+
+
+def apply_line_updates(table: torch.Tensor, line_ids: torch.Tensor,
+                       line_updates: torch.Tensor, lr: float, d: int,
+                       kind: str = "adagrad", eps: float = 1e-8,
+                       skip_ge: int | None = None) -> torch.Tensor:
+    """One-pass update (kernel K6) of the grouped [L, 128] lines, in
+    place: per-group adagrad or sgd (`rmw_lines`, G = 128 // (d+1)) on
+    each real line. line_ids [n] int32 pairwise distinct below skip_ge
+    (ids >= skip_ge are skipped); line_updates [n, 128] lane-placed.
+    Returns the table."""
+    if _rmw("line_rmw", apply_line_updates_plain, table, line_ids,
+            line_updates, lr, d, kind, eps, skip_ge):
+        with _count_lock:
+            apply_line_updates.launches += 1
+    return table
+
+
+apply_line_updates.launches = 0

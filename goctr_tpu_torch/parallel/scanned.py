@@ -1,31 +1,36 @@
 """Device-resident scanned trainer for SparseCTR, its result and its
 checkpoints (port of goctr_tpu/parallel/scanned.py: TrainedScanned
-:58-123, table_pad_rows :135-144, the fused G = 1 branch of _table_update
-with its compaction front ends :147-333, train_sparse_scanned :383-671,
-checkpoints :674-755, the analytic per-example counts :758-827).
+:58-123, GROUPED_RESIDENT_MIN_V :128, table_pad_rows :135-144, the fused
+branch of _table_update with its compaction front ends :147-365,
+train_sparse_scanned :383-671, checkpoints :674-755, the analytic
+per-example counts :758-827).
 
-The whole dataset lives on the device. Each step gathers the batch's rows
-from the packed [V, 128] table (w | adagrad acc | 0) with kernel K1,
-differentiates the loss with respect to the gathered rows (the table never
-enters autograd: no [V, D] gradient), takes one solver step on the dense
-parameters, and updates the table rows in place:
+The whole dataset lives on the device. The table is packed 128-lane
+lines: at emb_dim D >= 64 one row per line ([V, 128] = w | adagrad acc |
+0), below that G = 128 // (D+1) rows per line (grouped lines, [ceil(V/G),
+128]; G = 7 at D = 16). Each step gathers the batch's rows with kernel
+K1, differentiates the loss with respect to the gathered rows (the table
+never enters autograd: no [V, D] gradient), takes one solver step on the
+dense parameters, and updates the table in place:
 
     sort the batch's T+1 ids per example (stable), sum each id's rows
     (the dedup front end, ops/segsum.py; or, with compact_cap > 0, the
-    compaction to at most cap unique rows: rank-sort glue, or kernel K9),
-    then row adagrad or sgd: read (K1), compute, write back (kernel K4).
+    compaction to at most cap unique rows: rank-sort glue, or kernel K9);
+    on grouped lines, place each row's (Σg | ‖Σg‖²) in its group's lanes
+    and sum the rows of one line (a second sort and run sum, over line
+    ids); then row adagrad or sgd on each touched line, either split
+    (read with K1, compute in torch, write back with kernel K4) or in one
+    pass (kernel K5 on rows, K6 on grouped lines).
 
 Loss and overflow stay on the device; the host syncs once per epoch, as
 the JAX trainer does (`float(cost)` once per epoch, :633-634). Padded
 update slots follow the JAX trainer: the stream is padded to a multiple
-of ROWS_PER_STEP with pad id V, and junk targets are V+1+k, which the
-row write skips.
+of ROWS_PER_STEP with pad id V, and junk targets are V+1+k (on lines
+L+n+1+k), which the row updates skip.
 
 What the port's trainer accepts so far (others raise NotImplementedError
-naming the ROADMAP item that brings them): update_mode "fused" with one
-row per 128-lane line (64 <= emb_dim < 128; at emb_dim <= 63 the JAX
-trainer packs G = 128 // (D+1) rows per line, ROADMAP A3), rmw_impl
-"split" (the one-pass RMW kernel is ROADMAP A4), compact_cap 0 or > 0,
+naming the ROADMAP item that brings them): update_mode "fused" at any
+emb_dim < 128, rmw_impl "split" or "kernel", compact_cap 0 or > 0,
 compact_impl "xla" or "kernel".
 
 Random streams: shuffling and dropout draw from one torch.Generator
@@ -40,6 +45,12 @@ when absent) and `opt_state.npz` (the solver state's leaves "0", "1", ...
 in JAX leaf order), written the same way by both packages, so either
 loads the other's. Grouped line tables are unpacked to [V, D] on save,
 as the JAX package does.
+
+Grouped results: at a vocab of GROUPED_RESIDENT_MIN_V or more a grouped
+run draws its fresh table straight into line layout and returns the
+lines ([L, 128], `packed_group` = G, no acc: it lives in the lines), as
+the JAX trainer does (a [100M, 16] table is not drawn, and the lines are
+7.3 GB); below it the result is unpacked to [V, D] plus acc.
 """
 from __future__ import annotations
 
@@ -59,10 +70,14 @@ from goctr_tpu_torch.models.trainer import TrainerConfig
 from goctr_tpu_torch.ops.kernels.compact import compact_runsums_block
 from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
-    ROWS_PER_STEP, apply_row_updates_split, group_size, pack_grads,
-    pack_table, unpack_table_grouped_np,
+    LANES, ROWS_PER_STEP, apply_line_updates, apply_line_updates_split,
+    apply_row_updates, apply_row_updates_split, group_size, pack_grads,
+    pack_table_grouped, packed_lines, unpack_table_grouped,
+    unpack_table_grouped_np,
 )
-from goctr_tpu_torch.ops.segsum import _cumsum_rows, segment_rows_dedup
+from goctr_tpu_torch.ops.segsum import (
+    _cumsum_rows, segment_rows_dedup, sorted_run_sums,
+)
 from goctr_tpu_torch.optim.optimizers import Solver, make_solver
 from goctr_tpu_torch.optim.schedules import make_schedule
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
@@ -72,9 +87,13 @@ from goctr_tpu_torch.parallel.table_opt import TableOptConfig
 __all__ = ["TableOptConfig", "TrainedScanned", "train_sparse_scanned",
            "save_scanned_checkpoint", "load_scanned_checkpoint",
            "model_bytes_per_example", "model_flops_per_example",
-           "table_pad_rows"]
+           "table_pad_rows", "GROUPED_RESIDENT_MIN_V"]
 
 log = logging.getLogger(__name__)
+
+# vocab from which a grouped (emb_dim <= 63) run keeps its table in line
+# layout end to end: fresh lines drawn directly, lines returned
+GROUPED_RESIDENT_MIN_V = 4_000_000
 
 
 @dataclasses.dataclass
@@ -91,7 +110,7 @@ class TrainedScanned:
     # max per-batch count of unique rows dropped by compact_cap (0 = every
     # batch fit; if ever nonzero, grow the cap)
     update_overflow_max: int = 0
-    # >1: `table` is grouped packed lines [ceil(V/G), 128]
+    # >1: `table` is grouped packed lines [ceil(V/G), 128], acc None
     packed_group: int = 1
 
     def rows_of(self, ids: torch.Tensor) -> torch.Tensor:
@@ -154,15 +173,8 @@ def _check_supported(topt: TableOptConfig, emb_dim: int) -> None:
     if emb_dim >= 128:
         raise ValueError("update_mode='fused' requires emb_dim < 128 "
                          "(weights+acc pack into one 128-lane row)")
-    if group_size(emb_dim) > 1:
-        raise NotImplementedError(
-            f"emb_dim={emb_dim} packs G={group_size(emb_dim)} rows per "
-            "128-lane line; grouped-line training (kernel K6) comes with "
-            "ROADMAP A3")
-    if topt.rmw_impl != "split":
-        raise NotImplementedError(
-            f"rmw_impl={topt.rmw_impl!r}: the one-pass RMW row update "
-            "(kernel K5) comes with ROADMAP A4; use 'split'")
+    if topt.rmw_impl not in ("split", "kernel"):
+        raise ValueError(f"unknown rmw_impl {topt.rmw_impl!r}")
     if topt.compact_impl not in ("xla", "kernel"):
         raise ValueError(f"unknown compact_impl {topt.compact_impl!r}")
 
@@ -216,18 +228,20 @@ def compact_slots(compact_cap: int, n_to: int) -> int:
     return min(-(-compact_cap // ROWS_PER_STEP) * ROWS_PER_STEP, n_to)
 
 
-def update_stream(ids_flat: torch.Tensor, g_flat: torch.Tensor,
-                  topt: TableOptConfig, vocab: int):
-    """One batch's row gradients as the row update takes them: (tgt [m]
-    int32, pairwise distinct below vocab, junk targets past it; g_packed
-    [m, 128] = Σg | ‖Σg‖² | 0; overflow, the int32 count of unique rows
-    the compaction cap dropped, on the device). ids_flat [n] int32 (-1 =
-    behavior pad, contributes nothing), g_flat [n, D] f32."""
+def update_rows(ids_flat: torch.Tensor, g_flat: torch.Tensor,
+                topt: TableOptConfig, vocab: int):
+    """One batch's row gradients summed per id by the front end: (tgt [m]
+    int32, pairwise distinct below vocab, junk targets past it; rows
+    [m, D] f32, each real target's Σg and zeros elsewhere; packed, the
+    [m, 128] (Σg | ‖Σg‖² | 0) rows where the front end makes them (K9),
+    else None; overflow, the int32 count of unique rows the compaction
+    cap dropped, on the device). ids_flat [n] int32 (-1 = behavior pad,
+    contributes nothing), g_flat [n, D] f32."""
     n0, d = g_flat.shape
     n_to = -(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP
     if not topt.compact_cap:
         tgt, rows = segment_rows_dedup(ids_flat, g_flat, vocab, pad_to=n_to)
-        return tgt, pack_grads(rows), torch.zeros(
+        return tgt, rows, None, torch.zeros(
             (), dtype=torch.int32, device=g_flat.device)
     s_ids, g_s = sort_updates(ids_flat, g_flat, vocab)
     capr = compact_slots(topt.compact_cap, n_to)
@@ -235,21 +249,60 @@ def update_stream(ids_flat: torch.Tensor, g_flat: torch.Tensor,
         # the JAX trainer takes the kernel only for vocab < 2^24 because
         # its ids ride an f32 matmul on the TPU; K9 keeps ids in int32, so
         # only its D < 127 holds here (it raises otherwise, as JAX does)
-        return compact_runsums_block(s_ids, g_s, vocab, capr)
+        tgt, packed, overflow = compact_runsums_block(s_ids, g_s, vocab,
+                                                      capr)
+        return tgt, packed[:, :d], packed, overflow
     tgt, rows, overflow = _compact_xla(s_ids, g_s, vocab, capr)
-    return tgt, pack_grads(rows), overflow
+    return tgt, rows, None, overflow
+
+
+def line_stream(tgt: torch.Tensor, rows: torch.Tensor, vocab: int):
+    """The grouped lines' update stream (scanned.py:346-361): each real
+    row's (Σg | ‖Σg‖²) placed in its group's lanes of a [m, 128] row, rows
+    keyed by their line tgt // G (junk rows by L + position), sorted
+    stably, and the rows of one line summed (`sorted_run_sums`). Returns
+    (line ids [m] int32, pairwise distinct below L, junk ids from
+    L + m + 1; lane-placed line updates [m, 128] f32). ‖Σg‖² is
+    recomputed from the D weight lanes, as the JAX trainer does (:349),
+    whatever lane D of a packed front end holds."""
+    m, d = rows.shape
+    g = group_size(d)
+    n_lines = packed_lines(vocab, d)
+    dev = rows.device
+    real = tgt < vocab
+    nsq = (rows * rows).sum(1, keepdim=True)
+    vals = torch.cat([rows, nsq], 1) * real[:, None].float()
+    cols = (torch.remainder(tgt, g).long()[:, None] * (d + 1)
+            + torch.arange(d + 1, device=dev))
+    upd = torch.zeros((m, LANES), dtype=torch.float32, device=dev)
+    upd.scatter_(1, cols, vals)
+    pos = torch.arange(m, dtype=torch.int32, device=dev)
+    lkey = torch.where(real, torch.div(tgt, g, rounding_mode="floor"),
+                       n_lines + pos).to(torch.int32)
+    order = torch.sort(lkey, stable=True).indices
+    return sorted_run_sums(lkey[order], upd[order],
+                           junk_base=n_lines + m + 1)
 
 
 def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
                   g_flat: torch.Tensor, topt: TableOptConfig,
                   vocab: int) -> torch.Tensor:
-    """Apply one batch's row gradients to the packed [V, 128] table in
-    place (fused update, one row per line); returns the overflow count
-    (always 0 with compact_cap = 0), on the device."""
-    tgt, g_packed, overflow = update_stream(ids_flat, g_flat, topt, vocab)
-    apply_row_updates_split(table, tgt, g_packed, lr=topt.lr,
-                            d=g_flat.shape[1], kind=topt.kind, eps=topt.eps,
-                            skip_ge=vocab)
+    """Apply one batch's row gradients to the table in place: packed
+    [V, 128] rows at G = 1 (split, or kernel K5), grouped [L, 128] lines
+    below (`line_stream`, then split or kernel K6). Returns the overflow
+    count (always 0 with compact_cap = 0), on the device."""
+    d = g_flat.shape[1]
+    tgt, rows, packed, overflow = update_rows(ids_flat, g_flat, topt, vocab)
+    kernel = topt.rmw_impl == "kernel"
+    kw = dict(lr=topt.lr, d=d, kind=topt.kind, eps=topt.eps)
+    if group_size(d) == 1:
+        gp = packed if packed is not None else pack_grads(rows)
+        impl = apply_row_updates if kernel else apply_row_updates_split
+        impl(table, tgt, gp, skip_ge=vocab, **kw)
+    else:
+        ltgt, lrows = line_stream(tgt, rows, vocab)
+        impl = apply_line_updates if kernel else apply_line_updates_split
+        impl(table, ltgt, lrows, skip_ge=packed_lines(vocab, d), **kw)
     return overflow
 
 
@@ -289,19 +342,19 @@ def epoch_order(gen: torch.Generator, n_pad: int, shuffle: bool,
 
 def gather_batch_rows(model: SparseCTR, table: torch.Tensor,
                       b_bids: torch.Tensor, b_iids: torch.Tensor,
-                      sorted_gather: bool) -> torch.Tensor:
+                      sorted_gather: bool, group: int = 1) -> torch.Tensor:
     """The rows of one batch's ids, [B·T + B, D] in the compute dtype:
-    behaviors (pads read row 0, masked later) then items, gathered from
-    the packed table by K1, in raw or ascending-id order."""
+    behaviors (pads read row 0, masked later) then items, gathered by K1
+    from the packed table (`group` rows per line: 1 for [V, 128] rows, G
+    for grouped lines), in raw or ascending-id order."""
     flat = torch.cat([b_bids.reshape(-1), b_iids])
-    d, cd = model.emb_dim, model.compute_dtype
+    kw = dict(group=group, dim=model.emb_dim, out_dtype=model.compute_dtype)
     if not sorted_gather:
-        return gather_rows(table, flat.clamp_min(0), dim=d, out_dtype=cd)
+        return gather_rows(table, flat.clamp_min(0), **kw)
     order = torch.sort(flat, stable=True).indices
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.shape[0], device=order.device)
-    rows = gather_rows(table, flat[order].clamp_min(0), dim=d, out_dtype=cd)
-    return rows[inv]
+    return gather_rows(table, flat[order].clamp_min(0), **kw)[inv]
 
 
 def batch_loss(model: SparseCTR, emb: torch.Tensor, b_prof, b_bids, b_ctx,
@@ -326,12 +379,15 @@ def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
     """One step of the scanned trainer on one batch: gather the rows (K1),
     differentiate the loss with respect to the dense parameters and the
     gathered rows (K2 forward, K2b backward), take a solver step on the
-    dense parameters in place, and update the packed table in place.
-    Returns (loss, overflow, new solver state); nothing syncs the host."""
+    dense parameters in place, and update the packed table in place. The
+    table's layout follows emb_dim: [V, 128] rows at G = 1, grouped lines
+    of G = group_size(emb_dim) rows below. Returns (loss, overflow, new
+    solver state); nothing syncs the host."""
     params = model.param_leaves()
     with torch.enable_grad():
         emb = gather_batch_rows(model, table, b_bids, b_iids,
-                                topt.sorted_gather).requires_grad_()
+                                topt.sorted_gather,
+                                group_size(model.emb_dim)).requires_grad_()
         loss = batch_loss(model, emb, b_prof, b_bids, b_ctx, b_y, b_w,
                           generator)
         *g_dense, g_emb = torch.autograd.grad(loss, params + [emb])
@@ -353,13 +409,19 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
                          ) -> TrainedScanned:
     """Single-device scanned training of `model` on `sample`.
 
-    Without resume_from the dense parameters and a fresh [V, D] table are
-    drawn from the run's generator. With it, training continues from its
-    dense parameters (copied into `model`), table, adagrad accumulator and
-    solver state; resume_from itself is not modified (unless it shares
-    `model`). `model` is moved to `device` and its parameters are trained
-    in place. The result's table is a contiguous [V, D] tensor and its acc
-    a [V] tensor, both fresh."""
+    Without resume_from the dense parameters and a fresh table are drawn
+    from the run's generator: [V, D] N(0, 0.01²) (then packed), or at
+    emb_dim <= 63 and a vocab of GROUPED_RESIDENT_MIN_V or more, grouped
+    lines drawn directly. With it, training continues from its dense
+    parameters (copied into `model`), table (a [V, D] table with its
+    adagrad accumulator, or grouped lines), and solver state; resume_from
+    itself is not modified (unless it shares `model`): grouped lines are
+    cloned, a transient second copy (7.3 GB at 100M × 16) where the JAX
+    trainer donates them. `model` is moved to `device` and its
+    parameters are trained in place. The result's table is fresh: the
+    grouped lines ([L, 128], packed_group = G, acc None) when the run is
+    grouped and the vocab is at least GROUPED_RESIDENT_MIN_V, else a
+    contiguous [V, D] tensor and its [V] acc."""
     cfg = cfg or TrainerConfig()
     topt = table_opt or TableOptConfig()
     d, v = model.emb_dim, model.item_vocab
@@ -389,21 +451,30 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
     # ---- params: dense tower via the solver, table via row updates -------
     n_prev = len(resume_from.loss_curve) if resume_from is not None else 0
     gen = trainer_generator(cfg, n_prev, dev)
+    g = group_size(d)
+    resident = g > 1 and v >= GROUPED_RESIDENT_MIN_V
+    # the table as the trainer updates it, fresh: [V, 128] rows (w | acc
+    # | pad) at G = 1, grouped lines below
     if resume_from is not None:
-        if resume_from.packed_group > 1:
-            raise NotImplementedError(
-                "resuming a grouped-line result comes with grouped-line "
-                "training (ROADMAP A3)")
         if resume_from.model is not model:
             model.load_state_dict(resume_from.model.state_dict())
-        table = resume_from.table[:v].to(dev)
-        acc = (resume_from.acc[:v].to(dev) if resume_from.acc is not None
-               else torch.zeros(v, device=dev))
+        if resume_from.packed_group not in (1, g):
+            raise ValueError(
+                f"resume_from holds lines of {resume_from.packed_group} "
+                f"rows; emb_dim {d} packs {g}")
+        if resume_from.packed_group > 1:
+            table = resume_from.table.to(dev, copy=True)
+        else:
+            acc = (resume_from.acc[:v].to(dev)
+                   if resume_from.acc is not None
+                   else torch.zeros(v, device=dev))
+            table = pack_table_grouped(resume_from.table[:v].to(dev), acc)
+            del acc
+    elif resident:
+        table = model.init_params(gen, table_group=g)
     else:
-        table = model.init_params(gen)
-        acc = torch.zeros(v, device=dev)
-    table = pack_table(table, acc)         # [V, 128]: w | acc | pad, fresh
-    del acc
+        table = pack_table_grouped(model.init_params(gen),
+                                   torch.zeros(v, device=dev))
 
     params = model.param_leaves()
     solver = make_trainer_solver(cfg)
@@ -452,12 +523,14 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
 
     if resume_from is not None:
         loss_curve = resume_from.loss_curve + loss_curve
-    weights = table[:, :d].contiguous()    # K1 takes contiguous tables only
-    acc = table[:, d].contiguous()
-    del table
-    return TrainedScanned(model=model, table=weights, loss_curve=loss_curve,
+    acc = None
+    if not resident:                   # K1 takes contiguous tables only
+        table, acc = (x.contiguous()
+                      for x in unpack_table_grouped(table, v, d))
+    return TrainedScanned(model=model, table=table, loss_curve=loss_curve,
                           epoch_times=epoch_times, opt_state=opt_state,
-                          acc=acc, update_overflow_max=update_overflow_max)
+                          acc=acc, update_overflow_max=update_overflow_max,
+                          packed_group=g if resident else 1)
 
 
 def _check_opt_state(state: list[torch.Tensor],

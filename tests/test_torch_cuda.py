@@ -14,7 +14,9 @@ d_behaviors and d_item; its d_att0 sums B rows in another order (atol
 1e-5, rtol 1e-5). K4 is a copy — bit exact on every touched row, and
 every other row unchanged. K9 returns the same targets and overflow;
 its run sums add the same f32 rows in another order, so each lies within
-1e-5 of the run's sum of |g| (plus 1e-6).
+1e-5 of the run's sum of |g| (plus 1e-6). K5 and K6 round each term as
+the plain version does; only rsqrtf may differ from torch.rsqrt — rtol
+1e-6, atol 1e-7, and untouched lines bit exact.
 """
 import numpy as np
 import pytest
@@ -198,3 +200,72 @@ def test_compact_kernel_matches_plain(cuda, capr):
     assert bool((rows[:, 65:] == 0).all())
     again = k9.compact_runsums_block(s_ids, g, vocab, capr)
     assert torch.equal(again[1], rows)
+
+
+def _rmw_inputs(v, d, group, n, dev, seed=7):
+    """A packed (group 1) or grouped table with accumulators, n slots of
+    which 1,500 real distinct ids (the last line among them) and the rest
+    junk past the table, and lane-placed update rows (zero for junk).
+    Lanes past the groups hold a sentinel in both, which the update must
+    leave in the table and never read from the update rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    stride = d + 1
+    table = torch.zeros(v, 128, device=dev)
+    for grp in range(group):
+        table[:, grp * stride:grp * stride + d] = 0.1 * torch.randn(
+            v, d, generator=gen, device=dev)
+        table[:, grp * stride + d] = torch.rand(v, generator=gen, device=dev)
+    table[:, group * stride:] = 7.0
+    real = torch.randperm(v - 1, generator=gen, device=dev)[:1499]
+    real = torch.cat([real, torch.full((1,), v - 1, device=dev)])
+    junk = v + 1 + torch.arange(n - 1500, device=dev)
+    ids = torch.cat([real, junk])[torch.randperm(n, generator=gen,
+                                                 device=dev)].int()
+    upd = torch.zeros(n, 128, device=dev)
+    for grp in range(group):
+        g = 0.3 * torch.randn(n, d, generator=gen, device=dev)
+        upd[:, grp * stride:grp * stride + d] = g
+        upd[:, grp * stride + d] = (g * g).sum(1)
+    upd[ids >= v] = 0.0
+    upd[:, group * stride:] = -3.0
+    return table, ids, upd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-8, 0.0])
+@pytest.mark.parametrize("kind", ["adagrad", "sgd"])
+@pytest.mark.parametrize("d,grouped", [(64, False), (16, False), (64, True),
+                                       (30, True), (16, True)])
+def test_rmw_kernels_match_plain(cuda, d, grouped, kind, eps):
+    """K5 (packed rows) and K6 (grouped lines, G = 1, 4, 7): the same f32
+    terms, each rounded on its own, as the plain version; rsqrtf and
+    torch.rsqrt may differ, so rtol 1e-6, atol 1e-7 (a few ulps of the
+    weights); untouched lines are unchanged bit for bit. At eps = 0 every
+    lane stays finite (only weight lanes take the rsqrt)."""
+    group = tro.group_size(d) if grouped else 1
+    v, n = 5000, 4096
+    table, ids, upd = _rmw_inputs(v, d, group, n, cuda)
+    wrapper, plain = ((tro.apply_line_updates, tro.apply_line_updates_plain)
+                      if grouped else
+                      (tro.apply_row_updates, tro.apply_row_updates_plain))
+    before = wrapper.launches
+    got = wrapper(table.clone(), ids, upd, lr=0.25, d=d, kind=kind,
+                  eps=eps, skip_ge=v)
+    want = plain(table.clone(), ids, upd, lr=0.25, d=d, kind=kind, eps=eps,
+                 skip_ge=v)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    assert bool((got[:, group * (d + 1):] == 7.0).all())
+    touched = torch.zeros(v, dtype=torch.bool, device=cuda)
+    touched[ids[ids < v].long()] = True
+    assert torch.equal(got[~touched], table[~touched])
+    assert bool((got[touched] != table[touched]).any(1).all())
+    # skip_ge below the table: ids in [skip_ge, V) are left as they are
+    got = wrapper(table.clone(), ids, upd, lr=0.25, d=d, kind=kind,
+                  eps=eps, skip_ge=v // 2)
+    want = plain(table.clone(), ids, upd, lr=0.25, d=d, kind=kind, eps=eps,
+                 skip_ge=v // 2)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    assert torch.equal(got[v // 2:], table[v // 2:])

@@ -240,8 +240,8 @@ def test_fresh_run_learns_and_is_repeatable():
 
 @pytest.mark.parametrize("change,what", [
     (dict(update_mode="dedup"), "A4"),
-    (dict(rmw_impl="kernel"), "A4"),
-    (dict(emb_dim=16), "A3"),
+    (dict(update_mode="runfused"), "A4"),
+    (dict(update_mode="fused2", emb_dim=16), "A4"),
 ])
 def test_unported_modes_raise(change, what):
     mc = _model_cfg(400)
