@@ -31,21 +31,28 @@ Phases, in order; any failure raises and the script exits nonzero:
                width (10M × 64, batch 65,536, adam + table adagrad, the
                JAX bench's compact_cap rule) on 16 × 65,536 rows of the
                JAX bench workload (planted parity, zipf s = 1.05, noisy
-               labels): 3 epochs with compact_impl="xla" and 1 epoch from
-               the same start with "kernel", and 1 epoch with the one-pass
-               row update rmw_impl="kernel" (K5) (the main path: launch
-               counts reset just before, read just after). K1 (the
-               forward gather and the row update's read), K2, K2b, K4, K5
-               and K9 are held against their plain versions on the first
-               step's own inputs, with controls that must exceed each
-               limit, and K5, its plain version and the split update are
-               timed on them; the xla, kernel-compaction and K5 runs'
-               first-epoch losses agree, and wrong compactions (controls)
-               move that loss past the limit; small f32 models trained on
-               the card are held against the port on the CPU; a profiled
-               step gives the device-time breakdown; the trained result
-               serves through DeviceScorer with the phase-3 score check
-               and controls.
+               labels). The main path, launch counts reset just before
+               and read just after: 3 epochs of update_mode "fused" with
+               compact_impl="xla" and the split row update, then one
+               epoch from the same start for each other update path —
+               kernel compaction (K9), the one-pass row update (K5),
+               "fused2" (K7), "runfused" (K8) and "dedup" — whose
+               first-epoch losses must agree with the first, and one
+               epoch each of "plain" and "sorted" (per-occurrence
+               adagrad), which must be finite and agree with each other.
+               K1 (the forward gather and the row update's read), K2,
+               K2b, K4, K5, K9, K7 and K8 are held against their plain
+               versions on the first step's own inputs (K7 and K8 to a
+               limit derived from the exact update of each line), with
+               controls that must exceed each limit, and timed beside
+               their plain versions (K7 and K8 also beside the fused
+               path's update of the same stream); wrong compactions and
+               K7 / K8 fed a wrong stream (controls) move the first-epoch
+               loss past its limit; small f32 models trained on the card
+               in every update mode are held against the port on the
+               CPU; a profiled step gives the device-time breakdown; the
+               trained result serves through DeviceScorer with the
+               phase-3 score check and controls.
   7. grouped training — the 100M × 16 configuration (G = 7 rows per
                128-lane line, 7.3 GB of lines drawn directly) trained at
                batch 65,536 on the JAX bench's 1,000,000-row workload for
@@ -57,17 +64,19 @@ Phases, in order; any failure raises and the script exits nonzero:
                own inputs, with controls; the first-epoch losses agree,
                and K6 writing each update to its neighbour slot's line
                (control) moves that loss past the limit; small grouped
-               f32 trainers on the card are held against the port on the
+               f32 trainers on the card (grouped lines, and the other
+               update modes from lines) are held against the port on the
                CPU; 3 profiled steps; the trained lines serve with the
                score check and controls.
-Then it prints the card line, the `kernels` JSON line and, last,
-{"ok": true, "device": {...}}.
+Then it prints the card line, the `kernels` JSON line (nine kernels)
+and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -137,6 +146,15 @@ RUNSUM_RTOL = 1e-5
 # deterministic); compaction_controls() shows in every run that a wrong
 # compaction moves it past this limit
 LOSS_RTOL_IMPL = 1e-5
+# plain vs sorted, first-epoch mean loss: both add every occurrence's
+# ‖g‖² into the accumulator and its scaled gradient into the table, the
+# one in batch order, the other after a stable sort; scatter_add_rows adds
+# each id's rows in the order they come (a stable sort and one pass per
+# id on the card), which is batch order in both, and this workload has no
+# behavior pads (which plain adds to row 0 as zeros): the same f32 adds
+# in the same order, so the losses agree bit for bit. (With index_add_'s
+# atomics they read 2.99e-5 apart on an H100, PERF.md.)
+LOSS_RTOL_PAIR = 0.0
 # small f32 trainer, card vs CPU (the JAX package's own trainer parity
 # tolerances): loss curves rtol 1e-5, tables rtol 1e-4 / atol 1e-5
 TRAJ_LOSS_RTOL = 1e-5
@@ -423,10 +441,17 @@ def _device_events(prof):
     return sorted(rows, reverse=True)
 
 
-def device_ms(torch, fn, n_inputs, iters=24) -> float:
+def kernel_name(key: str) -> str:
+    """A profiler key's function name (`ns::name<...>(args)` → name)."""
+    m = re.search(r"::(\w+)", key)
+    return m[1] if m else key[:40]
+
+
+def device_ms(torch, fn, n_inputs, iters=24, by_kernel=None) -> float:
     """Device time of one call of fn(i): every kernel and copy that
     `iters` calls (cycling over n_inputs input sets) ran, summed by
-    torch.profiler, over iters. Host launch gaps are not counted."""
+    torch.profiler, over iters. Host launch gaps are not counted. A list
+    given as `by_kernel` receives (ms per call, name) of each kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(n_inputs):
@@ -436,7 +461,10 @@ def device_ms(torch, fn, n_inputs, iters=24) -> float:
         for i in range(iters):
             fn(i % n_inputs)
         torch.cuda.synchronize()
-    return sum(r[0] for r in _device_events(prof)) / iters / 1e3
+    rows = _device_events(prof)
+    if by_kernel is not None:
+        by_kernel.extend((us / iters / 1e3, key) for us, _, key in rows)
+    return sum(r[0] for r in rows) / iters / 1e3
 
 
 def profile_batch(torch, scorer, reqs):
@@ -918,6 +946,203 @@ def check_rmw(torch, step):
     return err, ctl
 
 
+def exact_update(torch, table, ids, sums, err, topt, D):
+    """The exact update of the distinct lines `ids` of `table` from their
+    exact run sums `sums` [m, D] (f64), and a bound on how far an f32
+    kernel's lines may lie from it when its run sums are within `err`
+    [m, D] of the exact ones: (x, bound), each [m, D + 1] f64 (weight
+    lanes, then the accumulator lane). adagrad: acc' = acc + ‖Σg‖², w' = w
+    − lr·Σg·(acc' + eps)^-1/2; sgd: w' = w − lr·Σg. The bound carries err
+    through the update to first order and adds the f32 rounding of each
+    operation (u = 2^-24 a rounding; ‖Σg‖² d squares and d adds; rsqrtf
+    2 ulps), doubled to cover the terms of second order."""
+    u = 2.0 ** -24
+    line = table[ids].double()
+    w, acc = line[:, :D], line[:, D]
+    if topt.kind == "sgd":
+        x_w = w - topt.lr * sums
+        b_w = topt.lr * err + 2 * u * (w.abs() + topt.lr * sums.abs())
+        x_a, b_a = acc, torch.zeros_like(acc)
+    else:
+        nsq = (sums * sums).sum(1)
+        x_a = acc + nsq
+        b_a = ((2 * sums.abs() * err + err * err).sum(1)
+               + (2 * D + 2) * u * nsq + u * x_a)
+        scale = topt.lr / torch.sqrt(x_a + topt.eps)
+        b_s = scale * (0.5 * b_a / (x_a + topt.eps) + 4 * u)
+        x_w = w - scale[:, None] * sums
+        b_w = (scale[:, None] * err + sums.abs() * b_s[:, None]
+               + 2 * u * (w.abs() + scale[:, None] * sums.abs()))
+    return (torch.cat([x_w, x_a[:, None]], 1),
+            2 * torch.cat([b_w, b_a[:, None]], 1))
+
+
+def check_sorted_kernels(torch, step):
+    """K7 (on the cumsum of the sorted stream) and K8 (on its rows)
+    against their plain versions on the first step's sorted stream, held
+    to a limit derived from this stream: the exact update of each real
+    line (f64 run sums, `exact_update`) and each version's distance from
+    it. K7's run sums are the f32 cumsum differences the plain version
+    takes too (their distance from the exact sums is measured); K8 sums a
+    run in tile order, whose f32 error is at most (min(len, 128) +
+    2·len/128 + 4)·u·Σ|g| (the adds each row passes through: its tile's,
+    the carry chain's over tiles and groups, the head's). Each kernel must lie within its bound
+    of the exact update, and so within bound + |plain − exact| of its
+    plain version; the plain version fed the ids shifted by one (control)
+    and fed its stream rolled by one position (controls) must leave
+    entries outside that limit. Untouched lines and lanes
+    past D stay as they were. Returns (max errors, controls)."""
+    from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+    from goctr_tpu_torch.ops.kernels import run_optimizer as k8
+    from goctr_tpu_torch.ops.segsum import _cumsum_rows
+
+    V, D, table, topt = step["V"], step["D"], step["table"], step["topt"]
+    s_ids, g_s = step["s_ids"], step["g_s"]
+    n, dev = s_ids.numel(), s_ids.device
+    kw = dict(lr=topt.lr, d=D, kind=topt.kind, eps=topt.eps, skip_ge=V)
+    # the runs of the stream (ids >= 0: pads carry V)
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = s_ids[1:] != s_ids[:-1]
+    run = torch.cumsum(start.long(), 0) - 1
+    first = torch.nonzero(start).flatten()
+    last = torch.cat([first[1:] - 1, first.new_full((1,), n - 1)])
+    real = s_ids[first] < V
+    ids = s_ids[first][real].long()
+    first, last = first[real], last[real]
+    n_runs = int(start.sum())
+    sums = torch.zeros((n_runs, D), dtype=torch.float64, device=dev
+                       ).index_add_(0, run, g_s.double())[real]
+    abs_sums = torch.zeros((n_runs, D), dtype=torch.float64, device=dev
+                           ).index_add_(0, run, g_s.abs().double())[real]
+    length = (last - first + 1).double()
+    c = _cumsum_rows(g_s)
+    prev = torch.where((first > 0)[:, None], c[(first - 1).clamp_min(0)],
+                       0.0)
+    err7 = ((c[last] - prev).double() - sums).abs()
+    err8 = ((length.clamp(max=128) + 2 * length / 128 + 4)[:, None]
+            * 2.0 ** -24 * abs_sums)
+    del prev, abs_sums
+    shifted = torch.where(s_ids < V, s_ids + 1, s_ids)
+    errs, ctl = {}, {}
+    for name, kern, plain, rows, err in (
+            ("K7", ro.apply_csum_updates, ro.apply_csum_updates_plain, c,
+             err7),
+            ("K8", k8.apply_run_updates, k8.apply_run_updates_plain, g_s,
+             err8)):
+        x, bound = exact_update(torch, table, ids, sums, err, topt, D)
+        got = kern(table.clone(), s_ids, rows, **kw)
+        want = plain(table.clone(), s_ids, rows, **kw)
+        torch.cuda.synchronize()
+        k_lines = got[ids][:, :D + 1].double()
+        p_dist = (want[ids][:, :D + 1].double() - x).abs()
+        k_dist = (k_lines - x).abs()
+        require(bool((k_dist <= bound).all()),
+                f"{name}: {int((k_dist > bound).sum())} entries farther "
+                f"from the exact update than the bound")
+        lim = bound + p_dist
+        diff = (k_lines - want[ids][:, :D + 1].double()).abs()
+        require(bool((diff <= lim).all()),
+                f"{name}: {int((diff > lim).sum())} entries outside the "
+                f"limit of the plain version")
+        errs[name] = float(diff.max())
+        require(torch.equal(got[ids][:, D + 1:], table[ids][:, D + 1:]),
+                f"{name}: a lane past D changed")
+        del want
+        for what, wrong_ids, wrong_rows in (
+                ("ids shifted", shifted, rows),
+                ("stream rolled", s_ids, rows.roll(1, 0))):
+            wrong = plain(table.clone(), wrong_ids, wrong_rows, **kw)
+            ctl[f"{name} {what}"] = int(
+                ((k_lines - wrong[ids][:, :D + 1].double()).abs()
+                 > lim).sum())
+            del wrong
+            require(ctl[f"{name} {what}"] > 0,
+                    f"{name} control: {what} passes the limit")
+        got[ids] = table[ids]
+        require(torch.equal(got, table), f"{name}: an untouched line changed")
+        log(f"[train-kernels] {name} n={n} D={D}: {ids.numel()} real runs "
+            f"(longest {int(length.max())} rows) vs plain: max err "
+            f"{errs[name]:.3g}, max limit {float(lim.max()):.3g} (exact "
+            f"update ± bound, + the plain version's distance from it: max "
+            f"{float(p_dist.max()):.3g}); kernel within its bound of the "
+            f"exact update (max distance {float(k_dist.max()):.3g}); "
+            f"untouched lines unchanged; controls: ids shifted by one leave "
+            f"{ctl[f'{name} ids shifted']} entries outside, the "
+            f"{'cumsum rows' if name == 'K7' else 'rows'} rolled by one "
+            f"position {ctl[f'{name} stream rolled']}")
+        del got, x, bound, k_lines, k_dist, p_dist, lim, diff
+    return errs, ctl
+
+
+def time_sorted_kernels(torch, step):
+    """Device ms of K7 and K8 and their plain versions on the first step's
+    sorted stream, with their bounds, and of the fused path's update of
+    the same stream: the split update (rank-sort compaction, K1 read,
+    torch, K4) and K9 + K5. The timed updates run on the step's own copy
+    of the table."""
+    from goctr_tpu_torch.ops.kernels import compact as k9
+    from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+    from goctr_tpu_torch.ops.kernels import run_optimizer as k8
+    from goctr_tpu_torch.ops.segsum import _cumsum_rows
+    from goctr_tpu_torch.parallel import scanned as sc
+
+    V, D, table, topt = step["V"], step["D"], step["table"], step["topt"]
+    s_ids, g_s, capr = step["s_ids"], step["g_s"], step["capr"]
+    n = s_ids.numel()
+    kw = dict(lr=topt.lr, d=D, kind=topt.kind, eps=topt.eps, skip_ge=V)
+    c = _cumsum_rows(g_s)
+    end = torch.ones(n, dtype=torch.bool, device=s_ids.device)
+    end[:-1] = s_ids[1:] != s_ids[:-1]
+    m = int((end & (s_ids < V)).sum())           # real runs
+    n_in = int((s_ids < V).sum())                # rows of real ids
+    live = -(-4 * (D + 1) // 32) * 32            # sectors of a line's lanes
+
+    def split(i):
+        tgt, rows, _ = sc._compact_xla(s_ids, g_s, V, capr)
+        ro.apply_row_updates_split(table, tgt, ro.pack_grads(rows), **kw)
+
+    def k9_k5(i):
+        tgt, packed, _ = k9.compact_runsums_block(s_ids, g_s, V, capr)
+        ro.apply_row_updates(table, tgt, packed, **kw)
+
+    fused = dict(split_ms=device_ms(torch, split, 1, iters=6),
+                 k9_k5_ms=device_ms(torch, k9_k5, 1))
+    k8_parts = []
+    out = {
+        "K7": dict(
+            ms=device_ms(torch, lambda i: ro.apply_csum_updates(
+                table, s_ids, c, **kw), 1),
+            plain_ms=device_ms(torch, lambda i: ro.apply_csum_updates_plain(
+                table, s_ids, c, **kw), 1, iters=6),
+            cumsum_ms=device_ms(torch, lambda i: _cumsum_rows(g_s), 1),
+            bytes=n * 4 + m * D * 4 + m * live * 2,
+            flops=m * ((D + 1) * 8 + D)),
+        "K8": dict(
+            ms=device_ms(torch, lambda i: k8.apply_run_updates(
+                table, s_ids, g_s, **kw), 1, by_kernel=k8_parts),
+            plain_ms=device_ms(torch, lambda i: k8.apply_run_updates_plain(
+                table, s_ids, g_s, **kw), 1, iters=6),
+            bytes=n * 4 + n_in * D * 4 + m * live * 2,
+            flops=n_in * D + m * (D + 1) * 8)}
+    for key, r in out.items():
+        r.update(fused, library_ms=None)
+        r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
+                            r["flops"] / F32_FLOPS_PER_S) * 1e3
+        r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
+                         >= r["flops"] / F32_FLOPS_PER_S else "operations")
+        extra = ("" if "cumsum_ms" not in r else
+                 f", the cumsum before it {r['cumsum_ms']:.5f}")
+        log(f"[train-kernels] {key} device ms per call: kernel "
+            f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}{extra}, bound "
+            f"{r['bound_ms']:.5f} ({r['bytes']} B, {r['flops']} flop, "
+            f"{r['bound_by']}); the fused path's update of the same stream: "
+            f"split (rank-sort compaction, K1 read, torch, K4) "
+            f"{r['split_ms']:.5f}, K9 + K5 {r['k9_k5_ms']:.5f}")
+    log("[train-kernels] K8 by kernel, device ms per call: "
+        + ", ".join(f"{kernel_name(key)} {ms:.5f}" for ms, key in k8_parts))
+    return out
+
+
 def time_train_kernels(torch, step):
     """Device ms of K2b, K9, K4 and K5 or K6 and their plain versions
     (K4's library call; the split update beside the one-pass one) on the
@@ -1053,9 +1278,11 @@ def profile_train_steps(torch, result, sample, cfg, topt, dev, steps=3):
 def small_train_check(torch, dev, emb_dim, cases):
     """A small f32 model trained 3 epochs on the card (kernels) and by the
     port on the CPU (plain versions) from the same start, for each
-    (compact_cap, compact_impl, rmw_impl) of `cases`. At emb_dim < 64 the
-    table is grouped lines, kept in lines (GROUPED_RESIDENT_MIN_V lowered
-    for the check) and compared line for line."""
+    TableOptConfig change of `cases` (compaction, row update, update
+    mode). At emb_dim < 64 the start is grouped lines: `fused` keeps them
+    (GROUPED_RESIDENT_MIN_V lowered for the check) and is compared line
+    for line; the other modes unpack them and return [rows, D] + acc
+    (runfused and fused2 train [V, 128] rows, one a line)."""
     from goctr_tpu_torch.models.trainer import TrainerConfig
     from goctr_tpu_torch.ops.kernels.row_optimizer import (
         group_size, pack_table_grouped)
@@ -1082,8 +1309,9 @@ def small_train_check(torch, dev, emb_dim, cases):
     resident_min = sc.GROUPED_RESIDENT_MIN_V
     sc.GROUPED_RESIDENT_MIN_V = 0
     try:
-        for cap, impl, rmw in cases:
+        for change in cases:
             out = {}
+            topt = sc.TableOptConfig(kind="adagrad", lr=0.3, **change)
             for d in ("cpu", dev):
                 m = SparseCTR(**cfgd, device="cpu")
                 m.load_state_dict(m0.state_dict())
@@ -1091,24 +1319,22 @@ def small_train_check(torch, dev, emb_dim, cases):
                     SparseCTR(**cfgd, device=d), sample,
                     TrainerConfig(batch_size=1024, epochs=3, early_stop=0,
                                   shuffle=False),
-                    sc.TableOptConfig(kind="adagrad", lr=0.3,
-                                      compact_cap=cap, compact_impl=impl,
-                                      rmw_impl=rmw),
-                    resume_from=sc.TrainedScanned(
+                    topt, resume_from=sc.TrainedScanned(
                         model=m, table=table0.clone(), loss_curve=[],
                         packed_group=G), device=d)
             c, g = out["cpu"], out[str(dev)]
-            require(g.packed_group == c.packed_group == G,
+            group = sc.table_group(topt.update_mode, emb_dim)
+            require(g.packed_group == c.packed_group == group,
                     f"small trainer: packed_group {g.packed_group}")
             lc = np.abs(np.array(g.loss_curve) - c.loss_curve) / np.abs(
                 c.loss_curve)
             worst[0] = max(worst[0], float(lc.max()))
-            what = f"small trainer D={emb_dim} {impl}/{cap}/{rmw}"
+            what = f"small trainer D={emb_dim} {change}"
             require(lc.max() <= TRAJ_LOSS_RTOL,
                     f"{what}: loss curves differ by {lc.max():.3g} (rtol "
                     f"{TRAJ_LOSS_RTOL})")
             pairs = [("table", g.table, c.table)]
-            if G == 1:
+            if group == 1:
                 pairs.append(("acc", g.acc, c.acc))
             for name, x, y in pairs:
                 bad, err = within(torch, x.cpu(), y, TRAJ_TABLE_RTOL,
@@ -1119,8 +1345,8 @@ def small_train_check(torch, dev, emb_dim, cases):
     finally:
         sc.GROUPED_RESIDENT_MIN_V = resident_min
     log(f"[train] small f32 trainer D={emb_dim} (G={G}), card (kernels) vs "
-        f"CPU (plain), cap/compaction/rmw "
-        f"{[f'{c}/{i}/{r}' for c, i, r in cases]}, 3 epochs: max loss rel "
+        f"CPU (plain), {len(cases)} configurations {cases}, 3 epochs: max "
+        f"loss rel "
         f"diff {worst[0]:.3g} (rtol {TRAJ_LOSS_RTOL}), max table/acc err "
         f"{worst[1]:.3g} (rtol {TRAJ_TABLE_RTOL}, atol {TRAJ_TABLE_ATOL})")
 
@@ -1175,17 +1401,65 @@ def compaction_controls(torch, sample, cfg, topt, start, dev, loss0):
     return readings
 
 
+def update_mode_controls(torch, sample, cfg, topt, start, dev, loss0):
+    """One epoch of each sorted-stream mode from `start` with its kernel
+    writing each run's update to the line of the next id (its real ids
+    shifted by one, every step), and the relative distance of each
+    first-epoch loss from `loss0`, the split run's. Each must exceed
+    LOSS_RTOL_IMPL, or the loss check could not catch a wrong K7 or K8.
+    (The stream rolled by one position, a subtler fault, moves this loss
+    by only 2e-6 to 5e-6 on an H100, PERF.md: check_sorted_kernels holds
+    it at the kernel.) Returns the readings."""
+    import dataclasses
+
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+
+    V = HEADLINE["item_vocab"]
+    readings = {}
+    for name, attr, mode in (("K7 ids shifted", "apply_csum_updates",
+                              "fused2"),
+                             ("K8 ids shifted", "apply_run_updates",
+                              "runfused")):
+        real = getattr(sc, attr)
+        try:
+            setattr(sc, attr, lambda table, s_ids, rows, real=real, **kw:
+                    real(table, torch.where(s_ids < V, s_ids + 1, s_ids),
+                         rows, **kw))
+            r = sc.train_sparse_scanned(
+                SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16,
+                          device=dev),
+                sample, dataclasses.replace(cfg, epochs=1),
+                dataclasses.replace(topt, update_mode=mode),
+                resume_from=start, device=dev)
+        finally:
+            setattr(sc, attr, real)
+        readings[name] = abs(r.loss_curve[0] - loss0) / abs(loss0)
+        del r
+    log(f"[train] update-mode controls, first-epoch loss rel diff from "
+        f"split (must exceed {LOSS_RTOL_IMPL}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in readings.items()))
+    for name, v in readings.items():
+        require(v > LOSS_RTOL_IMPL,
+                f"update-mode control '{name}': loss rel diff {v:.3g} is "
+                f"inside the limit {LOSS_RTOL_IMPL}, which therefore "
+                f"cannot catch it")
+    return readings
+
+
 def counted_kernels():
     """The launch-counted wrappers of the training paths, by name."""
     from goctr_tpu_torch.ops.kernels import compact as k9
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.kernels import row_gather as k1
     from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+    from goctr_tpu_torch.ops.kernels import run_optimizer as k8
 
     return {f.__name__: f for f in (
         k1.gather_rows, k2.din_attention_pool, k2.din_attention_pool_bwd,
         ro.scatter_rows_packed, k9.compact_runsums_block,
-        ro.apply_row_updates, ro.apply_line_updates)}
+        ro.apply_row_updates, ro.apply_line_updates, ro.apply_csum_updates,
+        k8.apply_run_updates)}
 
 
 def line_update_controls(torch, sample, cfg, topt, start, dev, loss0):
@@ -1223,26 +1497,29 @@ def line_update_controls(torch, sample, cfg, topt, start, dev, loss0):
 
 
 def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
-                small_cases, variants, controls):
+                small_cases, variants, controls, pair=()):
     """Phases 6 and 7: `model_cfg` trained at full width on `rows` rows of
     the JAX bench workload, batch TRAIN_BATCH, from a start drawn from
     `gen` (the table as the trainer keeps it: [V, D] rows, or grouped lines
     when D packs G > 1 rows a line). On the first step's inputs, K1, K2,
     K2b, K9, K4 and the one-pass update (K5 or K6) are held against their
-    plain versions and timed; `small_cases` are the small card-vs-CPU
-    trainers. The main path, counts reset just before and read just after:
-    TRAIN_EPOCHS epochs with the split update and xla compaction, and one
+    plain versions and timed, and K7 and K8 too when a variant trains
+    fused2 or runfused; `small_cases` are the small card-vs-CPU trainers.
+    The main path, counts reset just before and read just after:
+    TRAIN_EPOCHS epochs with the split update and xla compaction, one
     epoch from the same start for each (label, TableOptConfig change) of
-    `variants`, whose first-epoch losses must agree with the main run's;
-    `controls` shows that the limit catches a wrong update. Then 3
-    profiled steps, and the trained result serves. Returns (times, max
-    errors, main-path launches) of the kernels it checks."""
+    `variants`, whose first-epoch losses must agree with the main run's,
+    and one epoch each of the two modes of `pair`, whose losses must be
+    finite and agree with each other. Each function of `controls` shows
+    that the limit catches a wrong update. Then 3 profiled steps, and the
+    trained result serves. Returns (times, max errors, main-path
+    launches) of the kernels it checks."""
     import dataclasses
 
     from goctr_tpu_torch.models.trainer import TrainerConfig
     from goctr_tpu_torch.ops.kernels.row_optimizer import group_size
     from goctr_tpu_torch.parallel.scanned import (
-        TableOptConfig, TrainedScanned, train_sparse_scanned)
+        TableOptConfig, TrainedScanned, table_pad_rows, train_sparse_scanned)
     from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
     from goctr_tpu_torch.serve.scorer import DeviceScorer
 
@@ -1268,66 +1545,103 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
     shape = tuple(start.table.shape)
     log(f"[{tag}] start: table {shape} f32 "
         f"({start.table.numel() * 4 / 1e9:.2f} GB), G={G}")
+    modes = {change.get("update_mode", "fused") for _, change in variants}
+    sorted_modes = modes & {"fused2", "runfused"}
 
     step = first_step(torch, start, sample, cfg, topt, dev)
     errs, ctl = check_train_kernels(torch, step)
     name, rmw, _, _ = rmw_kernel(step)
     errs[name], c = check_rmw(torch, step)
     ctl.update(c)
+    if sorted_modes:
+        e, c = check_sorted_kernels(torch, step)
+        errs.update(e)
+        ctl.update(c)
     times = time_train_kernels(torch, step)
+    if sorted_modes:
+        times.update(time_sorted_kernels(torch, step))
     del step
     torch.cuda.empty_cache()
     small_train_check(torch, dev, D, small_cases)
 
     # the main path: counts reset just before, read just after
-    path = ("gather_rows", "din_attention_pool", "din_attention_pool_bwd",
-            "scatter_rows_packed", "compact_runsums_block", rmw.__name__)
+    path = ["gather_rows", "din_attention_pool", "din_attention_pool_bwd",
+            "scatter_rows_packed", "compact_runsums_block", rmw.__name__]
+    path += [k for m, k in (("fused2", "apply_csum_updates"),
+                            ("runfused", "apply_run_updates"))
+             if m in sorted_modes]
     counted = counted_kernels()
     for f in counted.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
 
     def run(**change):
-        return train_sparse_scanned(
+        r = train_sparse_scanned(
             SparseCTR(**model_cfg, compute_dtype=torch.bfloat16, device=dev),
             sample, dataclasses.replace(cfg, epochs=1) if change else cfg,
             dataclasses.replace(topt, **change), resume_from=start,
             device=dev)
+        mode = change.get("update_mode", "fused")
+        # the result's layout: the start's lines (or [V, D] + acc) in
+        # fused, [V, D] + acc in the other modes ([V + pad, D] in dedup)
+        want = ((shape, G, G > 1) if mode == "fused" else
+                ((V + (table_pad_rows(TRAIN_BATCH, T) if mode == "dedup"
+                       else 0), D), 1, False))
+        require((tuple(r.table.shape), r.packed_group, r.acc is None)
+                == want, f"{tag} {mode}: the result is not the trained "
+                         f"table {tuple(r.table.shape)}")
+        require(r.update_overflow_max == 0, f"{tag}: compact_cap overflowed")
+        return r
 
     r_main = run()
-    others = {what: run(**change) for what, change in variants}
+    others = {}
+    for what, change in (*variants, *pair):
+        r = run(**change)
+        others[what] = (r.loss_curve[0], r.epoch_times[0])
+        del r
     launches = {k: f.launches for k, f in counted.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     require(all(launches[k] > 0 for k in path),
             f"{tag}: a kernel of the path was never launched {launches}")
-    for r in (r_main, *others.values()):
-        require(r.packed_group == G and tuple(r.table.shape) == shape
-                and (r.acc is None) == (G > 1),
-                f"{tag}: the result is not the trained table")
-        require(r.update_overflow_max == 0, f"{tag}: compact_cap overflowed")
     lc = r_main.loss_curve
     require(all(np.isfinite(lc)) and lc[-1] < lc[0],
             f"{tag}: the loss does not fall {lc}")
     rel = {}
-    for what, r in others.items():
-        rel[what] = abs(r.loss_curve[0] - lc[0]) / abs(lc[0])
+    for what, _ in variants:
+        rel[what] = abs(others[what][0] - lc[0]) / abs(lc[0])
         require(rel[what] <= LOSS_RTOL_IMPL,
                 f"{tag}: first-epoch loss split/xla {lc[0]} vs {what} "
-                f"{r.loss_curve[0]} (rel {rel[what]:.3g} > "
+                f"{others[what][0]} (rel {rel[what]:.3g} > "
                 f"{LOSS_RTOL_IMPL})")
+    pair_line = ""
+    if pair:
+        (a, _), (b, _) = pair
+        la, lb = others[a][0], others[b][0]
+        require(np.isfinite(la) and np.isfinite(lb),
+                f"{tag}: {a} / {b} losses not finite: {la}, {lb}")
+        rel[f"{a} vs {b}"] = abs(la - lb) / abs(lb)
+        require(rel[f"{a} vs {b}"] <= LOSS_RTOL_PAIR,
+                f"{tag}: first-epoch loss {a} {la} vs {b} {lb} (rel "
+                f"{rel[f'{a} vs {b}']:.3g} > {LOSS_RTOL_PAIR})")
+        pair_line = (f"; per-occurrence adagrad: {a} {la}, {b} {lb} (rel "
+                     f"diff {rel[f'{a} vs {b}']:.3g}, limit "
+                     f"{LOSS_RTOL_PAIR}; rel to split "
+                     f"{abs(la - lc[0]) / abs(lc[0]):.3g})")
     steady = rows * (TRAIN_EPOCHS - 1) / sum(r_main.epoch_times[1:])
     log(f"[{tag}] V={V} D={D} (G={G}), batch {TRAIN_BATCH}, {steps} "
         f"steps/epoch: loss curve (split, xla) {lc}, epoch s "
         f"{r_main.epoch_times}; "
-        + "; ".join(f"{what} epoch 1 loss {r.loss_curve[0]} (rel diff "
-                    f"{rel[what]:.3g}), {r.epoch_times[0]:.3f} s"
-                    for what, r in others.items())
-        + f" (limit {LOSS_RTOL_IMPL}); overflow 0; steady-state "
-        f"{steady:.1f} ex/s, step "
+        + "; ".join(f"{what} epoch 1 loss {others[what][0]} (rel diff "
+                    f"{rel[what]:.3g}), {others[what][1]:.3f} s"
+                    for what, _ in variants)
+        + f" (limit {LOSS_RTOL_IMPL})"
+        + "".join(f"; {what} epoch {others[what][1]:.3f} s"
+                  for what, _ in pair)
+        + pair_line + f"; overflow 0; steady-state {steady:.1f} ex/s, step "
         f"{sum(r_main.epoch_times[1:]) / (steps * (TRAIN_EPOCHS - 1)) * 1e3:.3f}"
         f" ms; peak device memory {peak:.2f} GB; launches {launches}")
-    del others
-    ctl.update(controls(torch, sample, cfg, topt, start, dev, lc[0]))
+    for control in controls:
+        ctl.update(control(torch, sample, cfg, topt, start, dev, lc[0]))
     del start
     prof = profile_train_steps(torch, r_main, sample, cfg, topt, dev)
 
@@ -1370,7 +1684,8 @@ def main() -> int:
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build("row_gather", "din_attention", "din_attention_bwd",
-                        "row_scatter", "compact_runsums", "row_rmw")
+                        "row_scatter", "compact_runsums", "row_rmw",
+                        "csum_rmw", "run_rmw")
     card = card_line()
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s; torch {torch.__version__} "
@@ -1503,24 +1818,33 @@ def main() -> int:
     http_check(scorer, reqs)
 
     # 6. train ------------------------------------------------------------
+    modes = [{"update_mode": m}
+             for m in ("fused2", "runfused", "dedup", "sorted", "plain")]
     t6, e6, l6 = train_phase(
         torch, dev, gen, reqs, kernels, "train", HEADLINE, TRAIN_ROWS,
-        small_cases=[(0, "xla", "split"), (2048, "xla", "split"),
-                     (2048, "kernel", "split"), (2048, "xla", "kernel")],
+        small_cases=[{"compact_cap": 0}, {"compact_cap": 2048},
+                     {"compact_cap": 2048, "compact_impl": "kernel"},
+                     {"compact_cap": 2048, "rmw_impl": "kernel"}, *modes],
         variants=[("kernel compaction", {"compact_impl": "kernel"}),
-                  ("K5 row update", {"rmw_impl": "kernel"})],
-        controls=compaction_controls)
+                  ("K5 row update", {"rmw_impl": "kernel"}),
+                  ("K7 fused2", {"update_mode": "fused2"}),
+                  ("K8 runfused", {"update_mode": "runfused"}),
+                  ("dedup", {"update_mode": "dedup"})],
+        controls=(compaction_controls, update_mode_controls),
+        pair=(("plain", {"update_mode": "plain"}),
+              ("sorted", {"update_mode": "sorted"})))
     torch.cuda.empty_cache()
 
     # 7. grouped training ---------------------------------------------------
     t7, e7, l7 = train_phase(
         torch, dev, gen, g_reqs, kernels, "grouped-train", GROUPED,
         GROUPED_TRAIN_ROWS,
-        small_cases=[(2048, "xla", "split"), (0, "xla", "kernel"),
-                     (2048, "kernel", "kernel")],
+        small_cases=[{"compact_cap": 2048}, {"rmw_impl": "kernel"},
+                     {"compact_cap": 2048, "compact_impl": "kernel",
+                      "rmw_impl": "kernel"}, *modes],
         variants=[("one-pass (K6, K9)", {"rmw_impl": "kernel",
                                          "compact_impl": "kernel"})],
-        controls=line_update_controls)
+        controls=(line_update_controls,))
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -1539,7 +1863,13 @@ def main() -> int:
              "apply_row_updates"),
             ("K6", "line_rmw", "row_rmw.cu",
              "goctr_tpu/ops/pallas/row_optimizer.py:699", t7, l7,
-             "apply_line_updates")):
+             "apply_line_updates"),
+            ("K7", "csum_rmw", "csum_rmw.cu",
+             "goctr_tpu/ops/pallas/row_optimizer.py:393", t6, l6,
+             "apply_csum_updates"),
+            ("K8", "run_rmw", "run_rmw.cu",
+             "goctr_tpu/ops/pallas/run_optimizer.py:242", t6, l6,
+             "apply_run_updates")):
         r = times[key]
         err_key = "K2b d_behaviors" if key == "K2b" else key
         train_entries.append({

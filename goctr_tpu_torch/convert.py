@@ -50,9 +50,10 @@ def scanned_from_jax(model: SparseCTR, flat: dict[str, np.ndarray],
                      device: str | torch.device = "cuda") -> TrainedScanned:
     """A JAX TrainedScanned's state as the port's: `flat` dense parameters
     are loaded into `model` (moved to `device`), `table` is the JAX
-    result's table — [V, D] with `acc` its [V] adagrad accumulator, or a
-    grouped-resident result's [L, 128] lines (whose JAX `acc` is empty: it
-    lives in the lines), told apart by the shape — and `opt_state` the
+    result's table — [V, D] with `acc` its [V] adagrad accumulator (a
+    dedup result's [V + junk, D] and [V + junk] are taken as they are), or
+    a grouped-resident result's [L, 128] lines (whose JAX `acc` is empty:
+    it lives in the lines), told apart by the shape — and `opt_state` the
     solver state's leaves in JAX leaf order. The result can be passed to
     train_sparse_scanned as resume_from, saved, or served."""
     dev = resolve_device(device)

@@ -4,8 +4,8 @@ Each `csrc/<name>.cu` is compiled at first use by `nvcc` for sm_90a into a
 shared library with a plain C interface under `goctr_tpu_torch/_build/`
 (git-ignored), and loaded with ctypes. No PyTorch headers are included,
 so a build takes seconds, not minutes. The library's name carries a hash
-of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded.
+of its source, the headers of csrc/ and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 
 Conventions of every C entry point: pointers and the CUDA stream are
 `void*` (ctypes.c_void_p — a c_int would cut a 64-bit pointer), sizes
@@ -44,10 +44,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where csrc/<name>.cu builds to: the hash covers the source, every
+    header of csrc/ (a source may include one) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> dict[str, Path]:

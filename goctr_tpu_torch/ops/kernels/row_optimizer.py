@@ -1,9 +1,10 @@
-"""Packed embedding-table layouts and the row updates of the fused
-trainer (port of goctr_tpu/ops/pallas/row_optimizer.py: LANES and
+"""Packed embedding-table layouts and the row updates of the packed
+update modes (port of goctr_tpu/ops/pallas/row_optimizer.py: LANES and
 ROWS_PER_STEP :47-48, the one-pass row update apply_row_updates :146-229,
-pack/unpack :238-262, grouped lines and their one-pass update
-apply_line_updates :470-751, the split updates and their write-only
-scatter :768-901, pack_grads :904-911).
+pack/unpack :238-262, the cumsum-difference update apply_csum_updates
+:260-456, grouped lines and their one-pass update apply_line_updates
+:470-751, the split updates and their write-only scatter :768-901,
+pack_grads :904-911).
 
 Two layouts, bit for bit the JAX package's, so a table packed by one
 package unpacks in the other:
@@ -32,11 +33,17 @@ Two ways to apply one batch's update rows, the same arithmetic in f32
     in csrc/row_rmw.cu: each line is read, updated and written back by
     one warp.
 
+update_mode="fused2" takes the sorted stream with its duplicates and
+one cumsum of its rows instead: kernel K7 (`apply_csum_updates`,
+csrc/csum_rmw.cu) recovers each run's Σg as the difference of two cumsum
+rows and updates the run's line (runfused's K8 is
+ops/kernels/run_optimizer.py).
+
 Unlike the JAX functions, which return a new array, all of them update
 the table IN PLACE and return it: a [10M, 128] table is 5.1 GB, the
-100M × 16 lines 7.3 GB. Every target below skip_ge must be distinct (the
-trainer's front ends sum duplicates first): K5 and K6 would race on a
-repeated line. The update rows are a tensor of their own, never a view
+100M × 16 lines 7.3 GB. Every target below skip_ge of K4, K5 and K6 must
+be distinct (the trainer's front ends sum duplicates first): they would
+race on a repeated line. The update rows are a tensor of their own, never a view
 of the table (the wrappers refuse one that aliases it). Each wrapper
 launches its kernel for CUDA tensors and calls its plain version for CPU
 tensors; on any other device, or when the kernel cannot be built or
@@ -177,6 +184,11 @@ def _check_scatter(table: torch.Tensor, ids: torch.Tensor,
     if not 0 <= skip_ge <= table.shape[0]:
         raise ValueError(f"skip_ge={skip_ge} must lie in [0, "
                          f"{table.shape[0]}]")
+    _refuse_alias(table, rows)
+
+
+def _refuse_alias(table: torch.Tensor, rows: torch.Tensor) -> None:
+    """The update rows are read while the table is written in place."""
     t0 = table.data_ptr()
     t1 = t0 + table.numel() * 4
     r0 = rows.data_ptr()
@@ -420,3 +432,140 @@ def apply_line_updates(table: torch.Tensor, line_ids: torch.Tensor,
 
 
 apply_line_updates.launches = 0
+
+
+# ----------------------------------------------- K7: cumsum differences --
+# the JAX kernel's id | run_end << 30 stream (row_optimizer.py:260-268):
+# ids below 2^30 − 1, skip_ge at most 2^30 − 2
+_END = 1 << 30
+_CSUM_ID_MASK = _END - 1
+_CSUM = "csum_rmw"
+# (table, ids, c, n, d, skip_ge, adagrad, lr, eps, stream)
+_CSUM_ARGTYPES = {"csum_rmw": [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                  + [ctypes.c_int] + [ctypes.c_longlong] + [ctypes.c_int]
+                  + [ctypes.c_float] * 2 + [ctypes.c_void_p]}
+
+
+def pack_end_meta(s_ids: torch.Tensor) -> torch.Tensor:
+    """SORTED ids [n] int32 → (id | run_end << 30) int32, bit for bit the
+    stream the JAX kernel reads. The CUDA kernel reads the run ends from
+    the neighbouring ids instead; this is kept as the JAX layout's
+    record."""
+    end = torch.ones_like(s_ids, dtype=torch.bool)
+    end[:-1] = s_ids[1:] != s_ids[:-1]
+    return s_ids | (end.to(torch.int32) << 30)
+
+
+def check_sorted_stream(table: torch.Tensor, s_ids: torch.Tensor,
+                        rows: torch.Tensor, d: int, kind: str,
+                        skip_ge: int, id_cap: int) -> None:
+    """The argument checks of K7 and K8, in the JAX package's order (d,
+    then the id cap), then the shapes the kernels take: table [V, 128]
+    f32, s_ids [n] int32, rows [n, d] f32 with n a multiple of
+    ROWS_PER_STEP, skip_ge <= V, rows not aliasing the table."""
+    if not 0 < d < LANES:
+        raise ValueError(f"the sorted-stream row update requires 0 < d < "
+                         f"{LANES}, got {d}")
+    if skip_ge > id_cap:
+        raise ValueError(f"vocab {skip_ge} exceeds the id cap {id_cap}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown row optimizer {kind!r}")
+    if table.dim() != 2 or table.shape[1] != LANES \
+            or table.dtype != torch.float32:
+        raise ValueError(f"table must be [V, {LANES}] float32, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if s_ids.dim() != 1 or s_ids.dtype != torch.int32:
+        raise ValueError(f"s_ids must be [n] int32, got "
+                         f"{tuple(s_ids.shape)} {s_ids.dtype}")
+    n = s_ids.shape[0]
+    if tuple(rows.shape) != (n, d) or rows.dtype != torch.float32:
+        raise ValueError(f"rows must be [{n}, {d}] float32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if n % ROWS_PER_STEP:
+        raise ValueError(f"n={n} must be a multiple of {ROWS_PER_STEP}")
+    if s_ids.device != table.device or rows.device != table.device:
+        raise ValueError("table, s_ids and rows must be on one device")
+    if not (table.is_contiguous() and s_ids.is_contiguous()
+            and rows.is_contiguous()):
+        raise ValueError("table, s_ids and rows must be contiguous")
+    if not 0 <= skip_ge <= table.shape[0]:
+        raise ValueError(f"skip_ge={skip_ge} must lie in [0, "
+                         f"{table.shape[0]}]")
+    _refuse_alias(table, rows)
+
+
+def apply_run_sums(table: torch.Tensor, ids: torch.Tensor,
+                   sums: torch.Tensor, lr: float, d: int, kind: str,
+                   eps: float) -> torch.Tensor:
+    """The plain versions' row update of distinct lines `ids` ([m] int64)
+    from their run sums [m, d]: `pack_grads` (‖Σg‖² at lane d), the
+    current lines read with `index_select`, `rmw_lines`, `index_put_`."""
+    new = rmw_lines(table.index_select(0, ids), pack_grads(sums), lr, d,
+                    kind, eps)
+    return table.index_put_((ids,), new)
+
+
+def apply_csum_updates_plain(table: torch.Tensor, s_ids: torch.Tensor,
+                             c_rows: torch.Tensor, lr: float, d: int,
+                             kind: str = "adagrad", eps: float = 1e-8,
+                             skip_ge: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K7, the JAX fallback's arithmetic
+    (row_optimizer.py:422-456): each real run end's Σg = its cumsum row
+    minus that of the previous real run end (a cummax over the real ends'
+    positions; none: minus 0), then `apply_run_sums`. A real run end is
+    the last position of a run of an id in [0, skip_ge): negative ids are
+    never real (the JAX kernel's id mask skips them too)."""
+    if skip_ge is None:
+        skip_ge = table.shape[0]
+    n = s_ids.shape[0]
+    if n == 0:
+        return table
+    end = torch.ones_like(s_ids, dtype=torch.bool)
+    end[:-1] = s_ids[1:] != s_ids[:-1]
+    real = end & (s_ids >= 0) & (s_ids < skip_ge)
+    pos = torch.arange(n, device=s_ids.device)
+    last = torch.cummax(torch.where(real, pos, -1), 0).values
+    prev_end = torch.cat([last.new_full((1,), -1), last[:-1]])
+    sel = torch.nonzero(real).flatten()
+    p = prev_end[sel]
+    prev_c = torch.where((p >= 0)[:, None], c_rows[p.clamp_min(0)], 0.0)
+    return apply_run_sums(table, s_ids[sel].long(), c_rows[sel] - prev_c,
+                          lr, d, kind, eps)
+
+
+def apply_csum_updates(table: torch.Tensor, s_ids: torch.Tensor,
+                       c_rows: torch.Tensor, lr: float, d: int,
+                       kind: str = "adagrad", eps: float = 1e-8,
+                       skip_ge: int | None = None) -> torch.Tensor:
+    """Cumsum-difference row update (kernel K7, csrc/csum_rmw.cu) of the
+    packed [V, 128] table, in place: at each position that ends a run of
+    an id in [0, skip_ge), Σg = c_rows there minus c_rows at the previous
+    such run end, then row-wise adagrad or sgd on the id's line
+    (`rmw_lines`). s_ids [n] int32 sorted ascending (duplicates adjacent;
+    pads >= skip_ge sort last, skipped, and may point past the table);
+    c_rows [n, d] f32, the inclusive cumsum of the sorted gradient rows
+    (zero rows for pads); n a multiple of 1024; skip_ge (default V) at
+    most 2^30 − 2. Returns the table."""
+    if skip_ge is None:
+        skip_ge = table.shape[0]
+    check_sorted_stream(table, s_ids, c_rows, d, kind, skip_ge,
+                        _CSUM_ID_MASK - 1)
+    if table.device.type == "cpu":
+        return apply_csum_updates_plain(table, s_ids, c_rows, lr, d, kind,
+                                        eps, skip_ge)
+    if table.device.type != "cuda":
+        raise ValueError(f"no {_CSUM} kernel for {table.device}")
+    n = s_ids.shape[0]
+    if n == 0:
+        return table
+    lib = _build.load(_CSUM, _CSUM_ARGTYPES)
+    code = lib.csum_rmw(table.data_ptr(), s_ids.data_ptr(), c_rows.data_ptr(),
+                        n, d, skip_ge, int(kind == "adagrad"), lr, eps,
+                        torch.cuda.current_stream(table.device).cuda_stream)
+    _build.check(lib, _CSUM, code)
+    with _count_lock:
+        apply_csum_updates.launches += 1
+    return table
+
+
+apply_csum_updates.launches = 0

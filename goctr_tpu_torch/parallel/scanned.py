@@ -1,37 +1,54 @@
 """Device-resident scanned trainer for SparseCTR, its result and its
 checkpoints (port of goctr_tpu/parallel/scanned.py: TrainedScanned
-:58-123, GROUPED_RESIDENT_MIN_V :128, table_pad_rows :135-144, the fused
-branch of _table_update with its compaction front ends :147-365,
-train_sparse_scanned :383-671, checkpoints :674-755, the analytic
-per-example counts :758-827).
+:58-123, GROUPED_RESIDENT_MIN_V :128, table_pad_rows :135-144,
+_table_update :147-380, train_sparse_scanned :383-671, checkpoints
+:674-755, the analytic per-example counts :758-827).
 
-The whole dataset lives on the device. The table is packed 128-lane
-lines: at emb_dim D >= 64 one row per line ([V, 128] = w | adagrad acc |
-0), below that G = 128 // (D+1) rows per line (grouped lines, [ceil(V/G),
-128]; G = 7 at D = 16). Each step gathers the batch's rows with kernel
-K1, differentiates the loss with respect to the gathered rows (the table
-never enters autograd: no [V, D] gradient), takes one solver step on the
-dense parameters, and updates the table in place:
+The whole dataset lives on the device. Each step gathers the batch's rows
+with kernel K1, differentiates the loss with respect to the gathered rows
+(the table never enters autograd: no [V, D] gradient), takes one solver
+step on the dense parameters, and updates the table in place with
+row-wise adagrad (one accumulator a row) or sgd. `update_mode` picks the
+table's layout and its update, as in the JAX trainer:
 
-    sort the batch's T+1 ids per example (stable), sum each id's rows
-    (the dedup front end, ops/segsum.py; or, with compact_cap > 0, the
-    compaction to at most cap unique rows: rank-sort glue, or kernel K9);
-    on grouped lines, place each row's (Σg | ‖Σg‖²) in its group's lanes
-    and sum the rows of one line (a second sort and run sum, over line
-    ids); then row adagrad or sgd on each touched line, either split
-    (read with K1, compute in torch, write back with kernel K4) or in one
-    pass (kernel K5 on rows, K6 on grouped lines).
+  mode      layout (emb_dim D)                  update of one batch
+  fused     packed [V, 128] rows (w | acc | 0)  sort the ids, sum each id's
+            at D >= 64; grouped lines below:    rows (ops/segsum.py, or
+            G = 128 // (D+1) rows a line,       with compact_cap > 0 the
+            [ceil(V/G), 128]                    compaction: rank-sort glue
+                                                or K9); on grouped lines
+                                                sum the rows of a line
+                                                (`line_stream`); then split
+                                                (K1 read, torch, K4) or one
+                                                pass (K5 rows, K6 lines)
+  fused2    packed [V, 128] rows at every       sort, one blockwise cumsum,
+            D < 128                             kernel K7 (run sums as
+                                                cumsum differences)
+  runfused  packed [V, 128] rows at every       sort, kernel K8 (runs
+            D < 128                             summed in the kernel)
+  dedup     [V + table_pad_rows, D] and acc     sort and sum each id's rows
+            [V + table_pad_rows]                (ops/segsum.py), add the
+                                                unique rows into the table
+                                                and acc (junk targets past
+                                                V; ops/scatter.py)
+  sorted    [V, D] and acc [V]                  stable sort, add every
+                                                occurrence (ops/scatter.py):
+                                                adagrad per occurrence
+  plain     [V, D] and acc [V]                  add every occurrence in
+                                                batch order
+
+The three packed modes require D < 128 (weights and accumulator share a
+128-lane line); the other three take any D. fused, fused2, runfused and
+dedup apply the same row-wise adagrad to each id's summed gradient;
+sorted and plain add each occurrence's ‖g‖² to the accumulator and scale
+every occurrence by the accumulator after all of them (the JAX trainer's
+Hogwild-style per-occurrence update), different arithmetic.
 
 Loss and overflow stay on the device; the host syncs once per epoch, as
 the JAX trainer does (`float(cost)` once per epoch, :633-634). Padded
 update slots follow the JAX trainer: the stream is padded to a multiple
 of ROWS_PER_STEP with pad id V, and junk targets are V+1+k (on lines
-L+n+1+k), which the row updates skip.
-
-What the port's trainer accepts so far (others raise NotImplementedError
-naming the ROADMAP item that brings them): update_mode "fused" at any
-emb_dim < 128, rmw_impl "split" or "kernel", compact_cap 0 or > 0,
-compact_impl "xla" or "kernel".
+L+n+1+k), which the packed row updates skip and dedup's table holds.
 
 Random streams: shuffling and dropout draw from one torch.Generator
 seeded from `TrainerConfig.seed` (and, on resume, the epochs done). They
@@ -44,13 +61,17 @@ names), `table.npz` (`table` [V, D] f32 and the adagrad `acc` [V], empty
 when absent) and `opt_state.npz` (the solver state's leaves "0", "1", ...
 in JAX leaf order), written the same way by both packages, so either
 loads the other's. Grouped line tables are unpacked to [V, D] on save,
-as the JAX package does.
+and dedup's junk rows trimmed, as the JAX package does.
 
-Grouped results: at a vocab of GROUPED_RESIDENT_MIN_V or more a grouped
+Results: at a vocab of GROUPED_RESIDENT_MIN_V or more a grouped `fused`
 run draws its fresh table straight into line layout and returns the
 lines ([L, 128], `packed_group` = G, no acc: it lives in the lines), as
 the JAX trainer does (a [100M, 16] table is not drawn, and the lines are
-7.3 GB); below it the result is unpacked to [V, D] plus acc.
+7.3 GB). Every other run returns a contiguous [V, D] table and its [V]
+acc; dedup's carry its junk rows ([V + table_pad_rows, D]), as JAX's do.
+A run resumes from any of these layouts in any mode: grouped lines are
+unpacked unless the run keeps them, junk rows are trimmed or zero-extended
+to what the mode allocates.
 """
 from __future__ import annotations
 
@@ -70,11 +91,13 @@ from goctr_tpu_torch.models.trainer import TrainerConfig
 from goctr_tpu_torch.ops.kernels.compact import compact_runsums_block
 from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
-    LANES, ROWS_PER_STEP, apply_line_updates, apply_line_updates_split,
-    apply_row_updates, apply_row_updates_split, group_size, pack_grads,
-    pack_table_grouped, packed_lines, unpack_table_grouped,
-    unpack_table_grouped_np,
+    LANES, ROWS_PER_STEP, apply_csum_updates, apply_line_updates,
+    apply_line_updates_split, apply_row_updates, apply_row_updates_split,
+    group_size, pack_grads, pack_table, pack_table_grouped, packed_lines,
+    unpack_table, unpack_table_grouped, unpack_table_grouped_np,
 )
+from goctr_tpu_torch.ops.kernels.run_optimizer import apply_run_updates
+from goctr_tpu_torch.ops.scatter import scatter_add_rows
 from goctr_tpu_torch.ops.segsum import (
     _cumsum_rows, segment_rows_dedup, sorted_run_sums,
 )
@@ -91,15 +114,19 @@ __all__ = ["TableOptConfig", "TrainedScanned", "train_sparse_scanned",
 
 log = logging.getLogger(__name__)
 
-# vocab from which a grouped (emb_dim <= 63) run keeps its table in line
-# layout end to end: fresh lines drawn directly, lines returned
+# vocab from which a grouped (emb_dim <= 63) fused run keeps its table in
+# line layout end to end: fresh lines drawn directly, lines returned
 GROUPED_RESIDENT_MIN_V = 4_000_000
+UPDATE_MODES = ("fused", "fused2", "runfused", "dedup", "sorted", "plain")
+# weights and accumulator packed into 128-lane lines (emb_dim < 128)
+PACKED_MODES = ("fused", "fused2", "runfused")
 
 
 @dataclasses.dataclass
 class TrainedScanned:
     model: SparseCTR                    # holds the dense parameters
-    table: torch.Tensor                 # [V, D], or grouped [L, 128] lines
+    # [V, D] ([V + table_pad_rows, D] from dedup), or grouped [L, 128]
+    table: torch.Tensor
     loss_curve: list[float]
     epoch_times: list[float] = dataclasses.field(default_factory=list)
     # solver state leaves in JAX leaf order (optim/optimizers.py)
@@ -153,26 +180,33 @@ class TrainedScanned:
 
 
 def table_pad_rows(batch_size: int, behavior_len: int) -> int:
-    """Junk rows the JAX `dedup` mode allocates past the vocab: one shared
+    """Junk rows the `dedup` mode allocates past the vocab: one shared
     row for the -1 pads + a distinct target per update position (n
-    rounded up to ROWS_PER_STEP) + margin. The port's fused trainer
-    allocates none: its junk targets are skipped by the row write."""
+    rounded up to ROWS_PER_STEP) + margin. The packed modes allocate
+    none: their junk targets are skipped by the row update."""
     n = batch_size * (behavior_len + 1)
     n = -(-n // ROWS_PER_STEP) * ROWS_PER_STEP
     return n + 2
 
 
+def table_group(update_mode: str, emb_dim: int) -> int:
+    """Rows a line of the table the trainer updates in `update_mode`: G =
+    group_size(emb_dim) only for `fused` (scanned.py:470); one row a line
+    (or a row of [V, D]) in every other mode."""
+    return group_size(emb_dim) if update_mode == "fused" else 1
+
+
 def _check_supported(topt: TableOptConfig, emb_dim: int) -> None:
+    """The JAX trainer's errors (scanned.py:398-399, :239-240, :462-466),
+    raised before the first epoch, and the port's own option checks."""
     if topt.kind not in ("adagrad", "sgd"):
         raise ValueError(f"unknown table optimizer {topt.kind!r}")
-    if topt.update_mode != "fused":
-        raise NotImplementedError(
-            f"update_mode={topt.update_mode!r}: the port trains with "
-            "'fused' only so far; fused2, runfused, dedup, sorted and plain "
-            "come with ROADMAP A4")
-    if emb_dim >= 128:
-        raise ValueError("update_mode='fused' requires emb_dim < 128 "
-                         "(weights+acc pack into one 128-lane row)")
+    if topt.update_mode not in UPDATE_MODES:
+        raise ValueError(f"unknown update_mode {topt.update_mode!r}")
+    if topt.update_mode in PACKED_MODES and emb_dim >= LANES:
+        raise ValueError(f"update_mode={topt.update_mode!r} requires "
+                         "emb_dim < 128 (weights+acc pack into one "
+                         "128-lane row)")
     if topt.rmw_impl not in ("split", "kernel"):
         raise ValueError(f"unknown rmw_impl {topt.rmw_impl!r}")
     if topt.compact_impl not in ("xla", "kernel"):
@@ -284,17 +318,68 @@ def line_stream(tgt: torch.Tensor, rows: torch.Tensor, vocab: int):
                            junk_base=n_lines + m + 1)
 
 
+def _scatter_update(table: torch.Tensor, acc: torch.Tensor,
+                    ids_flat: torch.Tensor, g_flat: torch.Tensor,
+                    topt: TableOptConfig, vocab: int) -> None:
+    """The unpacked modes (scanned.py:161-187, :367-380), in place on the
+    [rows, D] table and its [rows] accumulator, with `scatter_add_rows`
+    (ids in the table, each id's adds in stream order) where JAX
+    scatters:
+      plain  — the batch's stream as it is (pads add zero rows to row 0);
+      sorted — the stably sorted stream (pads, -1, dropped);
+      dedup  — each id's rows summed (segment_rows_dedup, junk targets
+               V+1+k inside the table's junk rows), one row per id;
+    then acc += ‖g‖² of each row of the stream, and each row scaled by
+    lr · rsqrt(acc[id] + eps) (adagrad, after all the stream's acc adds)
+    or lr (sgd) is subtracted at its id. Rows of negative ids (behavior
+    pads) are zero."""
+    g = g_flat * (ids_flat >= 0).float()[:, None]
+    if topt.update_mode == "plain":
+        tgt, rows = ids_flat.clamp_min(0), g
+    elif topt.update_mode == "sorted":
+        order = torch.sort(ids_flat, stable=True).indices
+        tgt, rows = ids_flat[order], g[order]
+    else:
+        n0 = ids_flat.shape[0]
+        tgt, rows = segment_rows_dedup(
+            ids_flat, g, vocab, pad_to=-(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP)
+    if topt.kind == "adagrad":
+        scatter_add_rows(acc[:, None], tgt, (rows * rows).sum(1)[:, None])
+        scale = topt.lr * torch.rsqrt(acc[tgt.clamp_min(0).long()]
+                                      + topt.eps)
+    else:
+        scale = torch.full(tgt.shape, topt.lr, device=g.device)
+    scatter_add_rows(table, tgt, -scale[:, None] * rows)
+
+
 def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
-                  g_flat: torch.Tensor, topt: TableOptConfig,
-                  vocab: int) -> torch.Tensor:
-    """Apply one batch's row gradients to the table in place: packed
-    [V, 128] rows at G = 1 (split, or kernel K5), grouped [L, 128] lines
-    below (`line_stream`, then split or kernel K6). Returns the overflow
-    count (always 0 with compact_cap = 0), on the device."""
+                  g_flat: torch.Tensor, topt: TableOptConfig, vocab: int,
+                  acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply one batch's row gradients to the table in place, as
+    `topt.update_mode` says (module docstring): fused on packed [V, 128]
+    rows at G = 1 (split, or kernel K5) or grouped [L, 128] lines below
+    (`line_stream`, then split or kernel K6); fused2 (K7) and runfused
+    (K8) on packed [V, 128] rows; dedup, sorted and plain on the [rows, D]
+    table and its accumulator `acc`. Returns the overflow count (0 but
+    with compact_cap > 0 in fused), on the device."""
     d = g_flat.shape[1]
+    mode = topt.update_mode
+    if mode not in PACKED_MODES:
+        _scatter_update(table, acc, ids_flat, g_flat, topt, vocab)
+        return torch.zeros((), dtype=torch.int32, device=g_flat.device)
+    kw = dict(lr=topt.lr, d=d, kind=topt.kind, eps=topt.eps)
+    if mode != "fused":
+        # sorted stream, pads = vocab last; compact_cap and rmw_impl do not
+        # apply, as in JAX
+        s_ids, g_s = sort_updates(ids_flat, g_flat, vocab)
+        if mode == "fused2":
+            apply_csum_updates(table, s_ids, _cumsum_rows(g_s), skip_ge=vocab,
+                               **kw)
+        else:
+            apply_run_updates(table, s_ids, g_s, skip_ge=vocab, **kw)
+        return torch.zeros((), dtype=torch.int32, device=g_flat.device)
     tgt, rows, packed, overflow = update_rows(ids_flat, g_flat, topt, vocab)
     kernel = topt.rmw_impl == "kernel"
-    kw = dict(lr=topt.lr, d=d, kind=topt.kind, eps=topt.eps)
     if group_size(d) == 1:
         gp = packed if packed is not None else pack_grads(rows)
         impl = apply_row_updates if kernel else apply_row_updates_split
@@ -345,8 +430,9 @@ def gather_batch_rows(model: SparseCTR, table: torch.Tensor,
                       sorted_gather: bool, group: int = 1) -> torch.Tensor:
     """The rows of one batch's ids, [B·T + B, D] in the compute dtype:
     behaviors (pads read row 0, masked later) then items, gathered by K1
-    from the packed table (`group` rows per line: 1 for [V, 128] rows, G
-    for grouped lines), in raw or ascending-id order."""
+    from the trainer's table (`group` rows per line: 1 for [V, 128] rows
+    and [rows, D] tables, G for grouped lines), in raw or ascending-id
+    order."""
     flat = torch.cat([b_bids.reshape(-1), b_iids])
     kw = dict(group=group, dim=model.emb_dim, out_dtype=model.compute_dtype)
     if not sorted_gather:
@@ -375,19 +461,21 @@ def batch_loss(model: SparseCTR, emb: torch.Tensor, b_prof, b_bids, b_ctx,
 def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
                opt_state: list[torch.Tensor], b_prof, b_bids, b_iids, b_ctx,
                b_y, b_w, topt: TableOptConfig,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               acc: Optional[torch.Tensor] = None):
     """One step of the scanned trainer on one batch: gather the rows (K1),
     differentiate the loss with respect to the dense parameters and the
     gathered rows (K2 forward, K2b backward), take a solver step on the
-    dense parameters in place, and update the packed table in place. The
-    table's layout follows emb_dim: [V, 128] rows at G = 1, grouped lines
-    of G = group_size(emb_dim) rows below. Returns (loss, overflow, new
-    solver state); nothing syncs the host."""
+    dense parameters in place, and update the table (and, in the modes
+    that keep it apart, the accumulator `acc`) in place. The table is in
+    the layout of topt.update_mode (module docstring): grouped lines of
+    `table_group` rows, [V, 128] rows, or [rows, D]. Returns (loss,
+    overflow, new solver state); nothing syncs the host."""
     params = model.param_leaves()
     with torch.enable_grad():
-        emb = gather_batch_rows(model, table, b_bids, b_iids,
-                                topt.sorted_gather,
-                                group_size(model.emb_dim)).requires_grad_()
+        emb = gather_batch_rows(
+            model, table, b_bids, b_iids, topt.sorted_gather,
+            table_group(topt.update_mode, model.emb_dim)).requires_grad_()
         loss = batch_loss(model, emb, b_prof, b_bids, b_ctx, b_y, b_w,
                           generator)
         *g_dense, g_emb = torch.autograd.grad(loss, params + [emb])
@@ -397,7 +485,7 @@ def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
             p.add_(u)
         ids_flat = torch.cat([b_bids.reshape(-1), b_iids])
         overflow = _table_update(table, ids_flat, g_emb.float(), topt,
-                                 model.item_vocab)
+                                 model.item_vocab, acc)
     return loss.detach(), overflow, opt_state
 
 
@@ -410,18 +498,19 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
     """Single-device scanned training of `model` on `sample`.
 
     Without resume_from the dense parameters and a fresh table are drawn
-    from the run's generator: [V, D] N(0, 0.01²) (then packed), or at
-    emb_dim <= 63 and a vocab of GROUPED_RESIDENT_MIN_V or more, grouped
-    lines drawn directly. With it, training continues from its dense
-    parameters (copied into `model`), table (a [V, D] table with its
-    adagrad accumulator, or grouped lines), and solver state; resume_from
-    itself is not modified (unless it shares `model`): grouped lines are
-    cloned, a transient second copy (7.3 GB at 100M × 16) where the JAX
-    trainer donates them. `model` is moved to `device` and its
-    parameters are trained in place. The result's table is fresh: the
-    grouped lines ([L, 128], packed_group = G, acc None) when the run is
-    grouped and the vocab is at least GROUPED_RESIDENT_MIN_V, else a
-    contiguous [V, D] tensor and its [V] acc."""
+    from the run's generator: [V, D] N(0, 0.01²) (then laid out for the
+    update mode), or for a grouped `fused` run at a vocab of
+    GROUPED_RESIDENT_MIN_V or more, grouped lines drawn directly. With
+    it, training continues from its dense parameters (copied into
+    `model`), table (a [V, D] table with its adagrad accumulator, a dedup
+    result's [V + pad, D], or grouped lines), and solver state;
+    resume_from itself is not modified (unless it shares `model`):
+    tables are copied, a transient second copy (7.3 GB of lines at 100M ×
+    16) where the JAX trainer donates them. `model` is moved to `device`
+    and its parameters are trained in place. The result's table is fresh:
+    the grouped lines ([L, 128], packed_group = G, acc None) of a resident
+    grouped `fused` run, else a contiguous [rows, D] tensor and its
+    [rows] acc, rows = V + table_pad_rows in dedup and V otherwise."""
     cfg = cfg or TrainerConfig()
     topt = table_opt or TableOptConfig()
     d, v = model.emb_dim, model.item_vocab
@@ -451,30 +540,37 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
     # ---- params: dense tower via the solver, table via row updates -------
     n_prev = len(resume_from.loss_curve) if resume_from is not None else 0
     gen = trainer_generator(cfg, n_prev, dev)
-    g = group_size(d)
+    mode = topt.update_mode
+    g = table_group(mode, d)
     resident = g > 1 and v >= GROUPED_RESIDENT_MIN_V
-    # the table as the trainer updates it, fresh: [V, 128] rows (w | acc
-    # | pad) at G = 1, grouped lines below
+    rows = v + (table_pad_rows(bs, sample.behavior_ids.shape[1])
+                if mode == "dedup" else 0)
+    # the table (and acc) as the trainer updates them, fresh tensors
     if resume_from is not None:
         if resume_from.model is not model:
             model.load_state_dict(resume_from.model.state_dict())
-        if resume_from.packed_group not in (1, g):
+        if resume_from.packed_group not in (1, group_size(d)):
             raise ValueError(
                 f"resume_from holds lines of {resume_from.packed_group} "
-                f"rows; emb_dim {d} packs {g}")
-        if resume_from.packed_group > 1:
-            table = resume_from.table.to(dev, copy=True)
+                f"rows; emb_dim {d} packs {group_size(d)}")
+        if resume_from.packed_group > 1 and g > 1:
+            table, acc = resume_from.table.to(dev, copy=True), None
         else:
-            acc = (resume_from.acc[:v].to(dev)
-                   if resume_from.acc is not None
-                   else torch.zeros(v, device=dev))
-            table = pack_table_grouped(resume_from.table[:v].to(dev), acc)
-            del acc
+            if resume_from.packed_group > 1:    # lines into another mode
+                w, a = unpack_table_grouped(resume_from.table.to(dev), v, d)
+            else:
+                w = resume_from.table.to(dev)
+                a = (resume_from.acc.to(dev) if resume_from.acc is not None
+                     else torch.zeros(w.shape[0], device=dev))
+            table, acc = _layout_table(mode, w, a, v, rows)
+            del w, a
     elif resident:
-        table = model.init_params(gen, table_group=g)
+        table, acc = model.init_params(gen, table_group=g), None
     else:
-        table = pack_table_grouped(model.init_params(gen),
-                                   torch.zeros(v, device=dev))
+        w = model.init_params(gen)
+        table, acc = _layout_table(mode, w, torch.zeros(v, device=dev), v,
+                                   rows)
+        del w
 
     params = model.param_leaves()
     solver = make_trainer_solver(cfg)
@@ -496,7 +592,7 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
             idx = perm[b * bs:(b + 1) * bs]
             loss, over, opt_state = train_step(
                 model, table, solver, opt_state, d_prof[idx], d_bids[idx],
-                d_iids[idx], d_ctx[idx], d_y[idx], d_w[idx], topt, gen)
+                d_iids[idx], d_ctx[idx], d_y[idx], d_w[idx], topt, gen, acc)
             losses.append(loss)
             overs.append(over)
         # the epoch's one host sync: mean loss and max overflow together
@@ -523,14 +619,34 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
 
     if resume_from is not None:
         loss_curve = resume_from.loss_curve + loss_curve
-    acc = None
-    if not resident:                   # K1 takes contiguous tables only
+    if mode == "fused" and not resident:   # K1 takes contiguous tables only
         table, acc = (x.contiguous()
                       for x in unpack_table_grouped(table, v, d))
+    elif mode in PACKED_MODES and not resident:     # one row a line
+        table, acc = (x.contiguous() for x in unpack_table(table, d))
     return TrainedScanned(model=model, table=table, loss_curve=loss_curve,
                           epoch_times=epoch_times, opt_state=opt_state,
                           acc=acc, update_overflow_max=update_overflow_max,
                           packed_group=g if resident else 1)
+
+
+def _layout_table(mode: str, weights: torch.Tensor, acc: torch.Tensor,
+                  vocab: int, rows: int):
+    """(table, acc) as the trainer of `mode` updates them, fresh tensors
+    made from [V', D] weights and their [V'] accumulator: `fused` packs
+    the first V rows into [V, 128] rows or grouped lines, fused2 and
+    runfused into [V, 128] rows at every D (acc None: it lives in the
+    lines); the other modes keep [rows, D] and [rows], dropping rows past
+    `rows` and zero-filling missing ones (dedup's junk rows)."""
+    if mode == "fused":
+        return pack_table_grouped(weights[:vocab], acc[:vocab]), None
+    if mode in PACKED_MODES:
+        return pack_table(weights[:vocab], acc[:vocab]), None
+    out_w = weights.new_zeros((rows, weights.shape[1]))
+    out_a = acc.new_zeros((rows,))
+    out_w[:weights.shape[0]] = weights[:rows]
+    out_a[:acc.shape[0]] = acc[:rows]
+    return out_w, out_a
 
 
 def _check_opt_state(state: list[torch.Tensor],

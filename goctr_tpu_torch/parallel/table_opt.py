@@ -9,11 +9,18 @@ three that have no counterpart in the port yet:
     port has one gather, kernel K1;
   * `exchange_cap` belongs to the multi-GPU sharded update (ROADMAP A5).
 
-The scanned trainer of the port accepts `update_mode="fused"` at every
-emb_dim < 128 (one row per 128-lane line at emb_dim ≥ 64, grouped lines
-below) with either `rmw_impl`; the other update modes raise
-NotImplementedError naming the ROADMAP item that brings them
-(parallel/scanned.py).
+The port's scanned trainer accepts every update_mode of the JAX
+trainer; each picks the table's layout and the kernel of its update
+(parallel/scanned.py's module docstring has the table):
+  * fused    — packed [V, 128] rows at emb_dim >= 64, grouped lines below;
+               split update (K1, K4) or one pass (K5 rows, K6 lines),
+               compaction by rank-sort glue or K9;
+  * fused2   — packed [V, 128] rows at every emb_dim < 128; K7;
+  * runfused — packed [V, 128] rows at every emb_dim < 128; K8;
+  * dedup    — [V + junk, D] table and [V + junk] accumulator; torch;
+  * sorted, plain — [V, D] table and [V] accumulator; torch, adagrad per
+               occurrence.
+The three packed modes require emb_dim < 128.
 """
 from __future__ import annotations
 
@@ -25,10 +32,16 @@ class TableOptConfig:
     """Row-wise optimizer for the embedding table.
 
     kind: "adagrad" (DLRM row-wise adagrad, one accumulator per row,
-    packed beside the row's weights) or "sgd".
+    packed beside the row's weights in the packed modes) or "sgd".
     update_mode: "fused" — sort the batch's ids, sum duplicate rows, and
     write one updated packed line per unique id (per unique line on
-    grouped lines, whose rows are summed per line first).
+    grouped lines, whose rows are summed per line first); "fused2" — sort,
+    one cumsum, and kernel K7 recovers each run's sum as a difference of
+    cumsum rows; "runfused" — sort, and kernel K8 sums each run; "dedup"
+    — sort, sum duplicates, one add per unique id into [V + junk, D];
+    "sorted" / "plain" — add every occurrence (sorted, or in batch
+    order), each scaled by the accumulator after all of the batch's adds.
+    compact_cap, compact_impl and rmw_impl apply to "fused" only.
     sorted_gather: gather the batch's rows in ascending-id order (one
     sort + inverse permutation) instead of raw order.
     compact_cap: > 0 compacts the sorted update stream to at most this

@@ -16,7 +16,12 @@ every other row unchanged. K9 returns the same targets and overflow;
 its run sums add the same f32 rows in another order, so each lies within
 1e-5 of the run's sum of |g| (plus 1e-6). K5 and K6 round each term as
 the plain version does; only rsqrtf may differ from torch.rsqrt — rtol
-1e-6, atol 1e-7, and untouched lines bit exact.
+1e-6, atol 1e-7, and untouched lines bit exact. K7 and K8 take gradient
+rows on a dyadic grid (multiples of 1/16, |g| <= 1/4) and accumulators
+that are multiples of 1/64, so every run sum, cumsum and ‖Σg‖² is exact
+in f32 whatever the order of its adds: K8's sums in tile order equal the
+plain version's cumsum differences, and only rsqrtf may differ — the
+same rtol 1e-6, atol 1e-7, untouched lines bit exact.
 """
 import numpy as np
 import pytest
@@ -26,6 +31,9 @@ from goctr_tpu_torch.ops.kernels import compact as k9
 from goctr_tpu_torch.ops.kernels import din_attention as k2
 from goctr_tpu_torch.ops.kernels import row_gather as k1
 from goctr_tpu_torch.ops.kernels import row_optimizer as tro
+from goctr_tpu_torch.ops.kernels import run_optimizer as k8
+from goctr_tpu_torch.ops.scatter import scatter_add_rows
+from goctr_tpu_torch.ops.segsum import _cumsum_rows
 
 
 @pytest.fixture
@@ -269,3 +277,105 @@ def test_rmw_kernels_match_plain(cuda, d, grouped, kind, eps):
                  skip_ge=v // 2)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
     assert torch.equal(got[v // 2:], table[v // 2:])
+
+
+def _dyadic_stream(vocab, d, dev, n=8192, n_pad=300, seed=8):
+    """A sorted stream with a hot run of 3,000 rows (id 7: it crosses many
+    128-row tiles and the 1024 boundaries), many short runs, some across
+    a 1024 boundary, and n_pad pads (id = vocab) last; gradient rows on a
+    dyadic grid (zero for pads), a packed table whose accumulators are
+    multiples of 1/64 and whose padding lanes hold a sentinel."""
+    rng = np.random.default_rng(seed + d)
+    ids = np.concatenate([np.full(3000, 7),
+                          rng.integers(0, vocab, n - 3000 - n_pad)])
+    ids = np.concatenate([np.sort(ids), np.full(n_pad, vocab)])
+    g = (rng.integers(-4, 5, (n, d)) / 16).astype(np.float32)
+    g[n - n_pad:] = 0.0
+    table = np.zeros((vocab, 128), np.float32)
+    table[:, :d] = rng.normal(0, 0.1, (vocab, d))
+    table[:, d] = rng.integers(1, 65, vocab) / 64
+    table[:, d + 1:] = 7.0
+    return (torch.from_numpy(table).to(dev),
+            torch.from_numpy(ids.astype(np.int32)).to(dev),
+            torch.from_numpy(g).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-8, 0.0])
+@pytest.mark.parametrize("kind", ["adagrad", "sgd"])
+@pytest.mark.parametrize("d", [8, 16, 64, 127])
+@pytest.mark.parametrize("which", ["K7", "K8"])
+def test_sorted_stream_kernels_match_plain(cuda, which, d, kind, eps):
+    """K7 (on the stream's cumsum rows) and K8 (on its rows) against
+    their plain versions, with skip_ge = V and with skip_ge = V // 2 (ids
+    in [skip_ge, V) are skipped too); see the module docstring for the
+    tolerance."""
+    vocab = 3000
+    table, s_ids, g = _dyadic_stream(vocab, d, cuda)
+    if which == "K7":
+        wrapper, plain = tro.apply_csum_updates, tro.apply_csum_updates_plain
+        rows = _cumsum_rows(g)
+    else:
+        wrapper, plain = k8.apply_run_updates, k8.apply_run_updates_plain
+        rows = g
+    for skip_ge in (vocab, vocab // 2):
+        kw = dict(lr=0.25, d=d, kind=kind, eps=eps, skip_ge=skip_ge)
+        before = wrapper.launches
+        got = wrapper(table.clone(), s_ids, rows, **kw)
+        want = plain(table.clone(), s_ids, rows, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+        assert bool((got[:, d + 1:] == 7.0).all())
+        touched = torch.zeros(vocab, dtype=torch.bool, device=cuda)
+        touched[s_ids[s_ids < skip_ge].long()] = True
+        assert torch.equal(got[~touched], table[~touched])
+        assert bool((got[touched] != table[touched]).any(1).all())
+        # the same call repeats bit for bit (no float atomics)
+        assert torch.equal(wrapper(table.clone(), s_ids, rows, **kw), got)
+
+
+@pytest.mark.cuda
+def test_sorted_stream_kernels_refuse_bad_inputs(cuda):
+    table = torch.zeros(4096, 128, device=cuda)
+    s_ids = torch.arange(1024, dtype=torch.int32, device=cuda)
+    rows = torch.zeros(1024, 16, device=cuda)
+    alias = table.view(-1)[:1024 * 16].view(1024, 16)
+    for wrapper, cap in ((tro.apply_csum_updates, 2 ** 30 - 2),
+                         (k8.apply_run_updates, 2 ** 29 - 2)):
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="alias"):
+            wrapper(table, s_ids, alias, lr=0.1, d=16)
+        with pytest.raises(ValueError, match="id cap"):
+            wrapper(table, s_ids, rows, lr=0.1, d=16, skip_ge=cap + 1)
+        with pytest.raises(ValueError, match="multiple of 1024"):
+            wrapper(table, s_ids[:1000], rows[:1000], lr=0.1, d=16)
+        with pytest.raises(ValueError, match="0 < d"):
+            wrapper(table, s_ids, torch.zeros(1024, 128, device=cuda),
+                    lr=0.1, d=128)
+        assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+def test_scatter_add_rows_order_is_fixed(cuda):
+    """The unpacked update modes' scatter on the card: repeated ids add in
+    the order they come, so the batch's stream and its stable sort (the
+    plain and sorted modes) give the same bits, run after run."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    ids = torch.randint(-1, 500, (200_000,), generator=gen, device=cuda)
+    ids[:60_000] = 7                                     # a hot id
+    ids = ids[torch.randperm(ids.numel(), generator=gen, device=cuda)]
+    rows = torch.randn(ids.numel(), 64, generator=gen, device=cuda)
+    table = torch.randn(500, 64, generator=gen, device=cuda)
+    order = torch.sort(ids, stable=True).indices
+    got = scatter_add_rows(table.clone(), ids, rows)
+    for _ in range(2):
+        assert torch.equal(scatter_add_rows(table.clone(), ids[order],
+                                            rows[order]), got)
+        assert torch.equal(scatter_add_rows(table.clone(), ids, rows), got)
+    acc = torch.rand(500, generator=gen, device=cuda)
+    sq = (rows * rows).sum(1)[:, None]
+    want = scatter_add_rows(acc.clone()[:, None], ids, sq)
+    assert torch.equal(scatter_add_rows(acc.clone()[:, None], ids[order],
+                                        sq[order]), want)

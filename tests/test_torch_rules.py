@@ -56,9 +56,9 @@ def test_scan_sees_imports():
 
 def test_every_kernel_source_is_built_for_sm90a():
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["compact_runsums", "din_attention",
+    assert sources == ["compact_runsums", "csum_rmw", "din_attention",
                        "din_attention_bwd", "row_gather", "row_rmw",
-                       "row_scatter"]
+                       "row_scatter", "run_rmw"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in sources:
         lib = _build.library_path(name)
@@ -70,3 +70,15 @@ def test_every_kernel_source_is_built_for_sm90a():
         for part in ("What bounds it on the H100", "Design:",
                      "Plain version"):
             assert part in text, (name, part)
+
+
+def test_library_path_covers_headers(tmp_path, monkeypatch):
+    """A source that includes a csrc/ header is rebuilt when the header
+    changes: the library's hash covers the headers too."""
+    for src in _build.CSRC.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("run_rmw")
+    header = tmp_path / "line_update.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _build.library_path("run_rmw") != before

@@ -239,16 +239,20 @@ def test_fresh_run_learns_and_is_repeatable():
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(update_mode="dedup"), "A4"),
-    (dict(update_mode="runfused"), "A4"),
-    (dict(update_mode="fused2", emb_dim=16), "A4"),
+    (dict(update_mode="scatter"), "unknown update_mode"),
+    (dict(update_mode="runfused", emb_dim=128), "emb_dim < 128"),
+    (dict(update_mode="fused2", emb_dim=130), "emb_dim < 128"),
 ])
 def test_unported_modes_raise(change, what):
+    """The port trains every update mode of the JAX trainer; what it
+    refuses is what JAX refuses, with JAX's ValueErrors: an unknown mode,
+    and the packed modes at emb_dim >= 128
+    (tests/test_torch_update_modes.py holds both packages to them)."""
     mc = _model_cfg(400)
     topt = dict(change)
     if "emb_dim" in topt:
         mc["emb_dim"] = topt.pop("emb_dim")
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=what):
         train_sparse_scanned(SparseCTR(**mc, device="cpu"),
                              SparseSample(**_arrays(400)),
                              TrainerConfig(epochs=1), TableOptConfig(**topt),
