@@ -68,13 +68,30 @@ Phases, in order; any failure raises and the script exits nonzero:
                update modes from lines) are held against the port on the
                CPU; 3 profiled steps; the trained lines serve with the
                score check and controls.
-Then it prints the card line, the `kernels` JSON line (nine kernels)
+  8. mesh    — the mesh trainer train_sparse on the 1×1 mesh. K3 (fused
+               gather + pool) against its plain version on the dense
+               path's first batch (B = 65,536, T = 32, D = 64, mean and
+               sum) and at odd shapes, its gradient against autograd
+               through the plain pool, controls, and times beside
+               embedding_bag. The main path, counts reset just before and
+               read just after: the dense path (the table trained by adam
+               with the tower) at the headline widths with mean pooling,
+               TRAIN_EPOCHS shuffled epochs; the trained ranker's predict
+               on held-out rows (K3), held against the plain path with
+               controls; a profiled dense step. The sparse path (headline
+               DIN, table adagrad, fused): one epoch each with the split
+               update and K5 against one scanned epoch from the same
+               start, a control (each run written to the next id's line);
+               one epoch of the 100M × 16 grouped-resident lines through
+               the mesh step (K6); small f32 mesh trainers card vs CPU.
+Then it prints the card line, the `kernels` JSON line (ten kernels)
 and, last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -159,6 +176,19 @@ LOSS_RTOL_PAIR = 0.0
 # tolerances): loss curves rtol 1e-5, tables rtol 1e-4 / atol 1e-5
 TRAJ_LOSS_RTOL = 1e-5
 TRAJ_TABLE_RTOL, TRAJ_TABLE_ATOL = 1e-4, 1e-5
+# K3's gradient (index_add_: f32 atomics that add a hot id's ~10^4-10^5
+# terms in any order) against autograd through the plain pool in f64:
+# each entry within 1e-4 of the sum of its terms' magnitudes, + 1e-7
+POOL_GRAD_REL = 1e-4
+# the mesh trainer's sparse path vs one train_sparse_scanned epoch,
+# first-epoch loss: the JAX package holds its mesh step to the scanned
+# step's math within rtol 2e-5 (tests/test_sparse_trainer.py:158); the
+# mesh step sums each id's rows through one more cumsum difference (stage
+# 3), so its updates differ in f32 rounding
+MESH_LOSS_RTOL = 2e-5
+# mesh predict: held-out rows and the trainer's predict batch
+MESH_PREDICT_BATCH = 8192
+MESH_PREDICT_ROWS = 4 * MESH_PREDICT_BATCH
 
 
 def require(cond: bool, what: str) -> None:
@@ -609,9 +639,11 @@ def http_check(scorer, reqs):
 
 
 # ------------------------------------------------------------- phase 6 --
+@functools.lru_cache(maxsize=None)
 def make_workload(n, vocab, t, u, c, seed=0):
     """The JAX package's bench workload (bench.py:44-109, copied: bench.py
-    imports the JAX package), with its defaults zipf=True, noisy=True.
+    imports the JAX package), with its defaults zipf=True, noisy=True;
+    made once per argument set (the phases only read it).
     Planted parity: label = item parity == the user's taste parity, which
     85% of the behaviors carry; zipf (s = 1.05) popularity with hot ranks
     scattered over the id space by a multiplicative hash; 15% of labels
@@ -1216,13 +1248,45 @@ def time_train_kernels(torch, step):
     return out
 
 
-def profile_train_steps(torch, result, sample, cfg, topt, dev, steps=3):
-    """Device time by kernel and idle share over `steps` training steps of
-    the trained result (a copy of its model, table and solver state),
-    torch.profiler; plus the unprofiled step latency over 5 steps."""
-    import copy
-
+def profile_steps(torch, step, tag, steps=3):
+    """Device time by kernel and idle share over `steps` calls of step(i)
+    after one warm-up call, torch.profiler; plus the unprofiled latency
+    over 5 calls. Returns the readings and the (us, count, key) rows."""
     from torch.profiler import ProfilerActivity, profile
+
+    step(0)
+    torch.cuda.synchronize()
+    lat = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        step(i + 1)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_events(prof)
+    busy = sum(r[0] for r in rows)
+    log(f"[{tag}] {steps} steps: wall {wall_us / 1e3 / steps:.3f} "
+        f"ms/step, device busy {busy / 1e3 / steps:.3f} ms/step (idle share "
+        f"{max(0.0, 1 - busy / wall_us):.3f}); unprofiled step latency "
+        f"median {np.median(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms")
+    for us, count, key in rows[:24]:
+        log(f"[{tag}]   device {us / steps / 1e3:9.4f} ms/step "
+            f"x{count // steps:<4d} {key[:90]}")
+    return {"busy_ms": busy / 1e3 / steps, "wall_ms": wall_us / 1e3 / steps,
+            "lat_ms": float(np.median(lat) * 1e3), "rows": rows,
+            "steps": steps}
+
+
+def profile_train_steps(torch, result, sample, cfg, topt, dev, steps=3):
+    """profile_steps over training steps of the scanned trainer's result
+    (a copy of its model, table and solver state)."""
+    import copy
 
     from goctr_tpu_torch.ops.kernels.row_optimizer import pack_table
     from goctr_tpu_torch.parallel import scanned as sc
@@ -1247,32 +1311,7 @@ def profile_train_steps(torch, result, sample, cfg, topt, dev, steps=3):
         _, _, state = sc.train_step(model, table, solver, state,
                                     *batches[i % 4], topt)
 
-    step(0)
-    torch.cuda.synchronize()
-    lat = []
-    for i in range(5):
-        t0 = time.perf_counter()
-        step(i + 1)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            step(i)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_events(prof)
-    busy = sum(r[0] for r in rows)
-    log(f"[train-profile] {steps} steps: wall {wall_us / 1e3 / steps:.3f} "
-        f"ms/step, device busy {busy / 1e3 / steps:.3f} ms/step (idle share "
-        f"{max(0.0, 1 - busy / wall_us):.3f}); unprofiled step latency "
-        f"median {np.median(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms")
-    for us, count, key in rows[:24]:
-        log(f"[train-profile]   device {us / steps / 1e3:9.4f} ms/step "
-            f"x{count // steps:<4d} {key[:90]}")
-    return {"busy_ms": busy / 1e3 / steps, "wall_ms": wall_us / 1e3 / steps,
-            "lat_ms": float(np.median(lat) * 1e3)}
+    return profile_steps(torch, step, "train-profile", steps)
 
 
 def small_train_check(torch, dev, emb_dim, cases):
@@ -1455,11 +1494,13 @@ def counted_kernels():
     from goctr_tpu_torch.ops.kernels import row_optimizer as ro
     from goctr_tpu_torch.ops.kernels import run_optimizer as k8
 
+    from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
+
     return {f.__name__: f for f in (
         k1.gather_rows, k2.din_attention_pool, k2.din_attention_pool_bwd,
         ro.scatter_rows_packed, k9.compact_runsums_block,
         ro.apply_row_updates, ro.apply_line_updates, ro.apply_csum_updates,
-        k8.apply_run_updates)}
+        k8.apply_run_updates, k3.fused_gather_pool)}
 
 
 def line_update_controls(torch, sample, cfg, topt, start, dev, loss0):
@@ -1661,6 +1702,538 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
     return times, errs, launches
 
 
+# ------------------------------------------------------------- phase 8 --
+def device_batch(torch, sample, sl, dev):
+    """Rows `sl` of `sample` as a SparseBatch on `dev` (no padding)."""
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseBatch
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a[sl], dtype)).to(dev)
+
+    return SparseBatch(user_profile=put(sample.user_profile, np.float32),
+                       behavior_ids=put(sample.behavior_ids, np.int32),
+                       item_ids=put(sample.item_ids, np.int32),
+                       ctx=put(sample.ctx, np.float32),
+                       labels=put(sample.labels, np.float32))
+
+
+def plain_pool_grad(torch, table, ids, g):
+    """The mean pool's table gradient for the pooled rows' gradient g,
+    by autograd through the plain pool in f64, and the same for |g| (the
+    sum of each entry's terms' magnitudes)."""
+    v = table.shape[0]
+    valid = ids >= 0
+    ok = valid & (ids < v)
+    idx = torch.where(ok, ids, 0).long()
+    count = valid.sum(1, keepdim=True).clamp_min(1).double()
+    out = []
+    for gg in (g, g.abs()):
+        t64 = table.double().requires_grad_()
+        with torch.enable_grad():
+            pooled = (t64[idx] * ok[..., None]).sum(1) / count
+            pooled.backward(gg.double())
+        out.append(t64.grad)
+        del t64, pooled
+    return out
+
+
+def check_gather_pool(torch, table, id_sets):
+    """K3 against its plain version on the dense path's own inputs (the
+    first batch's behavior ids, `id_sets[0]`, mean and sum) and at odd
+    shapes (B = 8,191 with a fully padded row and ids past the table, K =
+    1, D = 16 and D = 128 tables), f32 TOL; GatherPoolMean's gradient
+    against autograd through the plain pool (f64), each entry within
+    POOL_GRAD_REL of the sum of its terms' magnitudes; controls (ids
+    shifted by one, a zeroed pool) that must leave entries outside TOL.
+    Times K3 (mean), its plain version and embedding_bag (sum with
+    per-sample weights valid / count, prepared outside the timing) over
+    the id sets, with the bound: ids and output once each, and each
+    distinct row once. Returns (max error, controls, times)."""
+    import torch.nn.functional as F
+
+    from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
+
+    v, d = table.shape
+    dev = table.device
+    ids = id_sets[0]
+    b, k = ids.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    atol, rtol = TOL["float32"]
+    errs, ctl = [], {}
+
+    def check(t, x, combiner, what):
+        got = k3.fused_gather_pool(t, x, combiner)
+        want = k3.fused_gather_pool_plain(t, x, combiner)
+        torch.cuda.synchronize()
+        errs.append(max_err(torch, got, want, "float32",
+                            f"K3 {what} {combiner}"))
+        return got, want
+
+    for combiner in ("sum", "mean"):
+        got, want = check(table, ids, combiner, "path")
+    shifted = torch.where(ids >= 0, (ids + 1) % v, ids)
+    ctl["K3 ids shifted"], _ = within(
+        torch, k3.fused_gather_pool(table, shifted, "mean"), want, rtol, atol)
+    ctl["K3 pool zeroed"], _ = within(torch, torch.zeros_like(want), want,
+                                      rtol, atol)
+    for name, n in ctl.items():
+        require(n > 0, f"K3 control '{name}' passes the limit")
+    odd = ids[:8191].clone()
+    odd[0] = -1                                    # a fully padded row
+    odd[1, 0], odd[2, k - 1] = v, v + 12345        # past the table: NaN
+    cases = [("B=8191, padded row, ids past V", table, odd),
+             ("K=1", table, ids[:, :1].contiguous())]
+    for dd in (16, 128):
+        t = torch.randn((1_000_000, dd), generator=gen, device=dev).mul_(0.01)
+        cases.append((f"D={dd}", t,
+                      torch.where(ids >= 0, ids % 1_000_000, ids)))
+    for what, t, x in cases:
+        for combiner in ("sum", "mean"):
+            got, _ = check(t, x, combiner, what)
+            if x is odd:
+                require(bool((got[0] == 0).all())
+                        and bool(torch.isnan(got[1:3]).all())
+                        and not bool(torch.isnan(got[3:]).any()),
+                        "K3: a padded row must give 0, ids past V NaN")
+    del cases, t
+    # the gradient
+    g = torch.randn((b, d), generator=gen, device=dev)
+    leaf = table.detach().requires_grad_()
+    with torch.enable_grad():
+        k3.GatherPoolMean.apply(leaf, ids).backward(g)
+    want_g, scale = plain_pool_grad(torch, table, ids, g)
+    diff = (leaf.grad.double() - want_g).abs()
+    bad = int((diff > POOL_GRAD_REL * scale + 1e-7).sum())
+    grad_err = float(diff.max())
+    require(bad == 0, f"K3 gradient: {bad} entries outside "
+                      f"{POOL_GRAD_REL}·Σ|terms| (max err {grad_err:.3g})")
+    del leaf, want_g, scale, diff
+    log(f"[mesh-kernels] K3 B,K,D={b},{k},{d} sum and mean, and B=8191 "
+        f"(a padded row, ids past V), K=1, D=16, D=128 vs plain: max err "
+        f"{max(errs):.3g} (tol atol={atol} rtol={rtol}); gradient vs "
+        f"autograd through the plain pool (f64): max err {grad_err:.3g} "
+        f"(limit {POOL_GRAD_REL}·Σ|terms| + 1e-7); controls: "
+        + ", ".join(f"{n} leaves {c} entries outside" for n, c in
+                    ctl.items()))
+    # times over the id sets of the first batches, as trained
+    lib_in = []
+    for x in id_sets:
+        valid = (x >= 0).float()
+        lib_in.append((x.clamp_min(0),
+                       valid / valid.sum(1, keepdim=True).clamp_min(1.0)))
+    lib = F.embedding_bag(lib_in[0][0], table, mode="sum",
+                          per_sample_weights=lib_in[0][1])
+    lib_diff = float((lib - want).abs().max())
+    n_sets = len(id_sets)
+    times = dict(
+        ms=device_ms(torch, lambda i: k3.fused_gather_pool(
+            table, id_sets[i], "mean"), n_sets, iters=4 * n_sets),
+        plain_ms=device_ms(torch, lambda i: k3.fused_gather_pool_plain(
+            table, id_sets[i], "mean"), n_sets, iters=n_sets),
+        library_ms=device_ms(torch, lambda i: F.embedding_bag(
+            lib_in[i][0], table, mode="sum",
+            per_sample_weights=lib_in[i][1]), n_sets, iters=4 * n_sets),
+        bytes=float(np.mean([x.numel() * 4 + x.shape[0] * d * 4
+                             + torch.unique(x[x >= 0]).numel() * d * 4
+                             for x in id_sets])),
+        flops=b * k * d + b * d)
+    times["bound_ms"] = max(times["bytes"] / HBM_BYTES_PER_S,
+                            times["flops"] / F32_FLOPS_PER_S) * 1e3
+    times["bound_by"] = ("bytes" if times["bytes"] / HBM_BYTES_PER_S
+                         >= times["flops"] / F32_FLOPS_PER_S
+                         else "operations")
+    log(f"[mesh-kernels] K3 mean device ms per call over {n_sets} batches' "
+        f"ids: kernel {times['ms']:.5f}, plain {times['plain_ms']:.5f}, "
+        f"embedding_bag {times['library_ms']:.5f} (max diff from the plain "
+        f"version {lib_diff:.3g}), bound {times['bound_ms']:.5f} "
+        f"({times['bytes']:.0f} B, {times['flops']} flop, "
+        f"{times['bound_by']})")
+    return max(errs), ctl, times
+
+
+def mesh_plain_scores(torch, ranker, sample, bids):
+    """Click probabilities of the mean-pool ranker on `sample` with
+    behavior ids `bids`, through the plain versions of K3 and K1 on the
+    card, in predict's batches."""
+    from goctr_tpu_torch.ops.kernels.embedding_lookup import (
+        fused_gather_pool_plain)
+    from goctr_tpu_torch.ops.kernels.row_gather import gather_rows_plain
+
+    out = []
+    for s in range(0, sample.rows, MESH_PREDICT_BATCH):
+        sl = slice(s, s + MESH_PREDICT_BATCH)
+        batch = device_batch(torch, sample, sl, ranker.table.device)
+        b = torch.from_numpy(np.ascontiguousarray(bids[sl])).to(
+            ranker.table.device)
+        pooled = fused_gather_pool_plain(ranker.table, b, "mean")
+        item = gather_rows_plain(ranker.table, batch.item_ids)
+        logits = ranker.model._tower(batch.user_profile, pooled, item,
+                                     batch.ctx)
+        out.append(torch.sigmoid(logits).cpu().numpy())
+    return np.concatenate(out)
+
+
+def check_mesh_predict(torch, ranker, counted):
+    """The trained mean-pool ranker's predict on held-out rows (batch
+    MESH_PREDICT_BATCH) through K3, counts reset just before and read
+    just after; scores against the plain path within SCORE_ATOL_TRAINED,
+    and controls (behavior ids shifted by one, no behaviors: a zeroed
+    pool) through the plain path that must exceed it."""
+    cfg = ranker.model
+    test = make_workload(MESH_PREDICT_ROWS, cfg.item_vocab, cfg.behavior_len,
+                         cfg.u_profile_dim, cfg.ctx_dim, seed=SEED + 5)
+    for f in counted.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    got = ranker.predict(test, batch_size=MESH_PREDICT_BATCH)
+    dt = time.perf_counter() - t0
+    launches = counted["fused_gather_pool"].launches
+    require(launches > 0, "mesh predict: K3 was never launched")
+    require(got.shape == (test.rows,) and np.isfinite(got).all()
+            and ((got >= 0) & (got <= 1)).all(),
+            "mesh predict: scores not finite probabilities")
+    err = float(np.abs(got - mesh_plain_scores(
+        torch, ranker, test, test.behavior_ids)).max())
+    require(err <= SCORE_ATOL_TRAINED,
+            f"mesh predict: kernels vs plain max |diff| {err:.3g}")
+    v = cfg.item_vocab
+    bids = test.behavior_ids
+    ctl = {}
+    for name, b in (("behavior rows shifted",
+                     np.where(bids >= 0, (bids + 1) % v, -1).astype(
+                         np.int32)),
+                    ("pool zeroed", np.full_like(bids, -1))):
+        ctl[name] = float(np.abs(got - mesh_plain_scores(
+            torch, ranker, test, b)).max())
+        require(ctl[name] > SCORE_ATOL_TRAINED,
+                f"mesh predict control '{name}': {ctl[name]:.3g} is inside "
+                f"the limit {SCORE_ATOL_TRAINED}")
+    log(f"[mesh] predict {test.rows} held-out rows at batch "
+        f"{MESH_PREDICT_BATCH} in {dt * 1e3:.1f} ms (K3 launches "
+        f"{launches}): kernels vs plain max |score diff| {err:.3g} (tol "
+        f"{SCORE_ATOL_TRAINED}); controls (must exceed it): "
+        + ", ".join(f"{k} {x:.3g}" for k, x in ctl.items()))
+    return launches, err, ctl
+
+
+def profile_dense_step(torch, result, sample, cfg, mesh):
+    """profile_steps over the dense step on a copy of the trained result,
+    the device time grouped into K3, K1, the backward scatter
+    (index_add_), the tower's matmuls and the rest; and the solver's pass
+    alone (one adam update of every leaf, table included, and the adds)."""
+    import copy
+
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel import train as tr
+
+    model = copy.deepcopy(result.model)
+    table = result.table.clone()
+    state = [x.clone() for x in result.opt_state]
+    solver = sc.make_trainer_solver(cfg)
+    step_fn = tr.make_sharded_train_step(model, solver, mesh)
+    bs = cfg.batch_size
+    batches = [device_batch(torch, sample, slice(b * bs, (b + 1) * bs),
+                            table.device) for b in range(4)]
+
+    def step(i):
+        nonlocal state
+        _, state = step_fn(table, state, batches[i % 4])
+
+    prof = profile_steps(torch, step, "mesh-profile")
+    groups = {"K3 gather_pool": ("gather_pool_kernel",),
+              "K1 row_gather": ("row_gather_kernel",),
+              "backward scatter (index_add_)": ("indexFuncLargeIndex",
+                                                "index_add"),
+              "tower matmuls": ("gemm", "xmma", "cutlass", "sm90_")}
+    by = dict.fromkeys(list(groups) + ["other"], 0.0)
+    for us, _, key in prof["rows"]:
+        name = next((g for g, pats in groups.items()
+                     if any(p in key for p in pats)), "other")
+        by[name] += us / prof["steps"] / 1e3
+    leaves = tr.dense_path_leaves(model, table)
+    zeros = [torch.zeros_like(p) for p in leaves]
+
+    def solve(i):
+        upd, _ = solver.update(zeros, state, leaves)
+        for p, u in zip(leaves, upd):
+            p.add_(u)
+
+    solver_ms = device_ms(torch, solve, 1, iters=4)
+    log("[mesh-profile] dense step device ms by part: "
+        + ", ".join(f"{k} {x:.4f}" for k, x in by.items())
+        + f"; the solver's pass alone (adam over every leaf, table "
+        f"included, and the adds) {solver_ms:.4f}")
+    return dict(prof, parts=by, solver_ms=solver_ms)
+
+
+def small_mesh_check(torch, dev, mesh):
+    """Small f32 trainers (tanh tower, table adagrad lr 0.05) on the card
+    (kernels) against the port on the CPU (plain versions), 3 shuffled
+    epochs from the same start: the dense path with mean and DIN pooling, the sparse path in fused (split
+    at D = 8, K5 / K6 at D = 64 / 8), fused2, runfused and dedup at D = 8
+    and D = 64."""
+    from goctr_tpu_torch.core.meshes import single_device_mesh
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.parallel.scanned import TableOptConfig
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+    from goctr_tpu_torch.parallel.sparse_trainer import (
+        SparseSample, TrainedSparseRanker, train_sparse)
+
+    rng = np.random.default_rng(SEED + 7)
+    n, vocab = 2500, 400
+    sample = SparseSample(
+        user_profile=rng.random((n, 4)).astype(np.float32),
+        behavior_ids=rng.integers(-1, vocab, (n, 5)).astype(np.int32),
+        item_ids=rng.integers(0, vocab, n).astype(np.int32),
+        ctx=rng.random((n, 2)).astype(np.float32),
+        labels=(rng.random(n) > 0.5).astype(np.float32))
+    cpu = single_device_mesh("cpu")
+    # a tanh tower, the main path's adam lr 1e-3 and table adagrad lr
+    # 0.05: a relu unit whose pre-activation lies within f32 rounding of 0
+    # for one row takes that row's gradient on one device and drops it on
+    # the other, and adam and adagrad scale each step by the gradient's
+    # own size; at D = 8 a row's first adagrad step is lr/√8 an entry, and
+    # at lr 0.3 the card's other order of f32 sums (stage 3's cumsum
+    # differences among them) grew to 3e-5 in 3 epochs. On an H100: 8.3e-3
+    # (relu, adam lr 1e-2), 4e-5 (relu, 1e-3), 3.03e-5 (tanh, 1e-3, table
+    # lr 0.3, D = 8). A wrong line or row still moves entries by ~lr/√D.
+    cfg = TrainerConfig(batch_size=1024, epochs=3, early_stop=0, lr=1e-3,
+                        seed=SEED)
+    cases = [(64, "mean", None), (64, "din_attention", None)]
+    for dd in (8, 64):
+        cases += [(dd, "din_attention", dict(update_mode="fused",
+                                             rmw_impl="kernel")),
+                  (dd, "din_attention", dict(update_mode="fused2")),
+                  (dd, "mean", dict(update_mode="runfused")),
+                  (dd, "din_attention", dict(update_mode="dedup"))]
+    cases.append((8, "din_attention", dict(update_mode="fused")))
+    worst = [0.0, 0.0]
+    for dd, pooling, change in cases:
+        mc = dict(item_vocab=vocab, emb_dim=dd, u_profile_dim=4, ctx_dim=2,
+                  behavior_len=5, hidden=(16,), pooling=pooling,
+                  activation="tanh")
+        m0 = SparseCTR(**mc, device="cpu")
+        start = TrainedSparseRanker(
+            model=m0, table=m0.init_params(torch.Generator().manual_seed(
+                SEED)), mesh=cpu, loss_curve=[])
+        topt = (None if change is None
+                else TableOptConfig(kind="adagrad", lr=0.05, **change))
+        c, g = (train_sparse(SparseCTR(**mc, device=m.device), sample, m,
+                             cfg, table_opt=topt, resume_from=start)
+                for m in (cpu, mesh))
+        what = f"small mesh trainer D={dd} {pooling} {change or 'dense'}"
+        lc = np.abs(np.array(g.loss_curve) - c.loss_curve) / np.abs(
+            c.loss_curve)
+        worst[0] = max(worst[0], float(lc.max()))
+        require(lc.max() <= TRAJ_LOSS_RTOL,
+                f"{what}: loss curves differ by {lc.max():.3g}")
+        pairs = [("table", g.table, c.table)]
+        if c.acc is not None:
+            pairs.append(("acc", g.acc, c.acc))
+        for name, x, y in pairs:
+            bad, err = within(torch, x.cpu(), y, TRAJ_TABLE_RTOL,
+                              TRAJ_TABLE_ATOL)
+            worst[1] = max(worst[1], err)
+            require(bad == 0, f"{what}: {name} {bad} entries outside (max "
+                              f"err {err:.3g})")
+    log(f"[mesh] small f32 mesh trainers, card (kernels) vs CPU (plain), "
+        f"{len(cases)} configurations (dense mean and DIN; fused, fused2, "
+        f"runfused, dedup at D = 8 and 64), 3 epochs: max loss rel diff "
+        f"{worst[0]:.3g} (rtol {TRAJ_LOSS_RTOL}), max table/acc err "
+        f"{worst[1]:.3g} (rtol {TRAJ_TABLE_RTOL}, atol {TRAJ_TABLE_ATOL})")
+
+
+def sparse_mesh_path(torch, dev, gen, mesh, sample, counted):
+    """The sparse path at full width: headline DIN, table adagrad lr
+    TABLE_LR, update_mode fused, shuffle off; one epoch each with the
+    split row update (K1 read + K4) and with K5, from the same start as
+    one train_sparse_scanned split/xla epoch, whose first-epoch loss they
+    must match within MESH_LOSS_RTOL; a control (stage 4 writing each run
+    to the next id's line) must exceed it. Then one epoch of the 100M ×
+    16 grouped-resident lines through the mesh step with K6. Counts reset
+    just before, read just after."""
+    import dataclasses
+
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel import train as tr
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+    from goctr_tpu_torch.parallel.sparse_trainer import (
+        TrainedSparseRanker, train_sparse)
+
+    cfg = TrainerConfig(batch_size=TRAIN_BATCH, epochs=1, early_stop=0,
+                        lr=1e-3, shuffle=False, seed=SEED)
+    model0 = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev)
+    table0 = model0.init_params(gen)
+    scan = sc.train_sparse_scanned(
+        SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16, device=dev),
+        sample, cfg, sc.TableOptConfig(
+            kind="adagrad", lr=TABLE_LR,
+            compact_cap=bench_compact_cap(sample, TRAIN_BATCH)),
+        resume_from=sc.TrainedScanned(model=model0, table=table0,
+                                      loss_curve=[]), device=dev)
+    require(scan.update_overflow_max == 0, "mesh: scanned run overflowed")
+    loss0, t0 = scan.loss_curve[0], scan.epoch_times[0]
+    del scan
+    start = TrainedSparseRanker(model=model0, table=table0, mesh=mesh,
+                                loss_curve=[])
+    topt = sc.TableOptConfig(kind="adagrad", lr=TABLE_LR)
+    for f in counted.values():
+        f.launches = 0
+
+    def run(rmw, sample=sample, model_cfg=HEADLINE, resume=start):
+        r = train_sparse(
+            SparseCTR(**model_cfg, compute_dtype=torch.bfloat16, device=dev),
+            sample, mesh, cfg, table_opt=dataclasses.replace(
+                topt, rmw_impl=rmw), resume_from=resume)
+        require(r.lookup_overflow_max == 0 and np.isfinite(r.loss_curve[0]),
+                f"mesh sparse {rmw}: overflow or a non-finite loss")
+        return r
+
+    out = {}
+    for rmw in ("split", "kernel"):
+        r = run(rmw)
+        require(tuple(r.table.shape) == (HEADLINE["item_vocab"],
+                                         HEADLINE["emb_dim"]),
+                "mesh sparse: the result is not the [V, D] table")
+        out[rmw] = (r.loss_curve[0], r.epoch_times[0],
+                    abs(r.loss_curve[0] - loss0) / abs(loss0))
+        del r
+    launches = {k: f.launches for k, f in counted.items()}
+    path = ("gather_rows", "din_attention_pool", "din_attention_pool_bwd",
+            "scatter_rows_packed", "apply_row_updates")
+    require(all(launches[k] > 0 for k in path),
+            f"mesh sparse: a kernel of the path was never launched "
+            f"{launches}")
+    for rmw, (loss, _, rel) in out.items():
+        require(rel <= MESH_LOSS_RTOL,
+                f"mesh sparse {rmw}: first-epoch loss {loss} vs scanned "
+                f"{loss0} (rel {rel:.3g} > {MESH_LOSS_RTOL})")
+    real = tr.apply_row_updates_split
+    try:
+        tr.apply_row_updates_split = (
+            lambda table, ids, upd, skip_ge, real=real, **kw: real(
+                table, torch.where(ids < skip_ge, ids + 1, ids), upd,
+                skip_ge=skip_ge, **kw))
+        r = run("split")
+    finally:
+        tr.apply_row_updates_split = real
+    ctl = abs(r.loss_curve[0] - loss0) / abs(loss0)
+    del r, start, table0
+    require(ctl > MESH_LOSS_RTOL,
+            f"mesh sparse control: loss rel diff {ctl:.3g} is inside the "
+            f"limit {MESH_LOSS_RTOL}")
+    log(f"[mesh] sparse path, headline DIN, one epoch each from one start "
+        f"(shuffle off): scanned split/xla {loss0} ({t0:.3f} s); mesh "
+        + "; ".join(f"{rmw} {x[0]} (rel diff {x[2]:.3g}, {x[1]:.3f} s)"
+                    for rmw, x in out.items())
+        + f" (limit {MESH_LOSS_RTOL}); control, stage 4 writing each run to "
+        f"the next id's line: rel diff {ctl:.3g}; launches {launches}")
+    # the 100M x 16 grouped-resident lines through the mesh step (K6)
+    g_sample = make_workload(GROUPED_TRAIN_ROWS, GROUPED["item_vocab"],
+                             GROUPED["behavior_len"],
+                             GROUPED["u_profile_dim"], GROUPED["ctx_dim"],
+                             seed=SEED)
+    for f in counted.values():
+        f.launches = 0
+    r = run("kernel", sample=g_sample, model_cfg=GROUPED, resume=None)
+    g_launches = {k: f.launches for k, f in counted.items()}
+    require(r.packed_group == 7 and g_launches["apply_line_updates"] > 0,
+            f"mesh grouped: not the resident lines through K6 "
+            f"{g_launches}")
+    log(f"[mesh] grouped-resident 100M x 16 lines {tuple(r.table.shape)}, "
+        f"one epoch through the mesh step with K6: loss {r.loss_curve[0]} "
+        f"in {r.epoch_times[0]:.3f} s; launches {g_launches}")
+    del r
+    return ctl
+
+
+def mesh_phase(torch, dev, gen):
+    """Phase 8: the mesh trainer train_sparse on the 1×1 mesh. K3 checked
+    and timed on the dense path's own inputs; the main path — the dense
+    path at full width (headline widths, mean pooling, batch TRAIN_BATCH,
+    adam lr 1e-3 and l2 0 on every leaf, table included, TRAIN_EPOCHS
+    shuffled epochs) with counts reset just before and read just after,
+    and the trained ranker's predict; a profiled dense step; the sparse
+    path (sparse_mesh_path); small f32 trainers card vs CPU. Returns the
+    kernels-line entry of K3."""
+    from goctr_tpu_torch.core.meshes import single_device_mesh
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+    from goctr_tpu_torch.parallel.sparse_trainer import (
+        TrainedSparseRanker, train_sparse)
+
+    t_phase = time.perf_counter()
+    mesh = single_device_mesh(dev)
+    V, T = HEADLINE["item_vocab"], HEADLINE["behavior_len"]
+    sample = make_workload(TRAIN_ROWS, V, T, HEADLINE["u_profile_dim"],
+                           HEADLINE["ctx_dim"], seed=SEED)
+    mean_cfg = dict(HEADLINE, pooling="mean")
+    cfg = TrainerConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                        early_stop=0, lr=1e-3, l2=0.0, shuffle=True,
+                        seed=SEED)
+    model0 = SparseCTR(**mean_cfg, compute_dtype=torch.bfloat16, device=dev)
+    table0 = model0.init_params(gen)
+    # the behavior ids of the dense path's first batches, as it shuffles
+    order = np.random.default_rng(cfg.seed).permutation(sample.rows)
+    id_sets = [torch.from_numpy(np.ascontiguousarray(sample.behavior_ids[
+        order[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]])).to(dev)
+        for b in range(4)]
+    k3_err, ctl, times = check_gather_pool(torch, table0, id_sets)
+    del id_sets
+    torch.cuda.empty_cache()
+
+    # the main path: counts reset just before, read just after
+    counted = counted_kernels()
+    for f in counted.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    r = train_sparse(
+        SparseCTR(**mean_cfg, compute_dtype=torch.bfloat16, device=dev),
+        sample, mesh, cfg,
+        resume_from=TrainedSparseRanker(model=model0, table=table0,
+                                        mesh=mesh, loss_curve=[]))
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counted.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del table0
+    require(launches["fused_gather_pool"] > 0 and launches["gather_rows"] > 0,
+            f"mesh dense: a kernel of the path was never launched {launches}")
+    lc = r.loss_curve
+    require(all(np.isfinite(lc)) and lc[-1] < lc[0],
+            f"mesh dense: the loss does not fall {lc}")
+    steps = -(-TRAIN_ROWS // TRAIN_BATCH)
+    steady = TRAIN_ROWS * (TRAIN_EPOCHS - 1) / sum(r.epoch_times[1:])
+    log(f"[mesh] dense path, headline widths with mean pooling, V={V} D="
+        f"{HEADLINE['emb_dim']}, batch {TRAIN_BATCH}, {steps} steps/epoch: "
+        f"loss curve {lc}, epoch s {r.epoch_times}; steady-state "
+        f"{steady:.1f} ex/s, step "
+        f"{sum(r.epoch_times[1:]) / (steps * (TRAIN_EPOCHS - 1)) * 1e3:.3f}"
+        f" ms; peak device memory {peak:.2f} GB; launches {launches}")
+    k3_pred, pred_err, pred_ctl = check_mesh_predict(torch, r, counted)
+    ctl.update(pred_ctl)
+    prof = profile_dense_step(torch, r, sample, cfg, mesh)
+    del r
+    torch.cuda.empty_cache()
+    ctl["mesh sparse next id"] = sparse_mesh_path(torch, dev, gen, mesh,
+                                                  sample, counted)
+    torch.cuda.empty_cache()
+    small_mesh_check(torch, dev, mesh)
+    log(f"[mesh] done in {time.perf_counter() - t_phase:.1f} s: dense "
+        f"steady {steady:.1f} ex/s, profiled step device busy "
+        f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}; K3 launches "
+        f"{launches['fused_gather_pool']} training + {k3_pred} predict; "
+        f"controls {ctl}")
+    return {"name": "gather_pool", "route": "cuda",
+            "source": "goctr_tpu_torch/csrc/gather_pool.cu",
+            "replaces": "goctr_tpu/ops/pallas/embedding_lookup.py:106",
+            "launches": launches["fused_gather_pool"] + k3_pred,
+            "max_abs_err": k3_err, "ms": times["ms"],
+            "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+            "bound_by": times["bound_by"],
+            "library_ms": times["library_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -1685,7 +2258,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build("row_gather", "din_attention", "din_attention_bwd",
                         "row_scatter", "compact_runsums", "row_rmw",
-                        "csum_rmw", "run_rmw")
+                        "csum_rmw", "run_rmw", "gather_pool")
     card = card_line()
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s; torch {torch.__version__} "
@@ -1845,6 +2418,10 @@ def main() -> int:
         variants=[("one-pass (K6, K9)", {"rmw_impl": "kernel",
                                          "compact_impl": "kernel"})],
         controls=(line_update_controls,))
+    torch.cuda.empty_cache()
+
+    # 8. the mesh trainer ---------------------------------------------------
+    k3_entry = mesh_phase(torch, dev, gen)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -1898,13 +2475,13 @@ def main() -> int:
          "bound_by": ("bytes" if din_bytes / HBM_BYTES_PER_S
                       >= din_flops / F32_FLOPS_PER_S else "operations"),
          "library_ms": None},
-    ] + train_entries}
+    ] + train_entries + [k3_entry]}
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "
         f"{min(ctl.values()):.3g}, grouped {min(g_ctl.values()):.3g}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"GB since phase 7's main path; total "
+        f"GB since phase 8's main path; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

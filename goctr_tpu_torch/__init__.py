@@ -6,11 +6,15 @@ the reference becomes a kernel written by hand for Hopper (CUDA C++ under
 `csrc/`, built for sm_90a at first use); plain tensor code is PyTorch.
 
 Layer map (mirrors goctr_tpu; only the ported slices exist):
-  core/      — dtype policy, device resolution
+  core/      — dtype policy, device resolution, the (data, model) mesh
+               (1×1 so far)
   ops/       — activations + the hand kernels (`ops/kernels/`) with their
                plain PyTorch versions and the packed-table layouts
-  models/    — shared init helpers, parameter (de)flattening
-  parallel/  — SparseCTR (DIN pool + tower), TrainedScanned + checkpoints
+  models/    — shared init helpers, parameter (de)flattening, sparse
+               checkpoints
+  parallel/  — SparseCTR (DIN or mean pool + tower), its lookups, the
+               scanned trainer and the mesh trainer with their results
+               and checkpoints
   serve/     — device-resident scorer, micro-batcher, HTTP API
   convert.py — carries JAX-side parameters (as numpy) into the port
 

@@ -80,7 +80,7 @@ import json
 import logging
 import time
 from pathlib import Path
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
@@ -104,8 +104,10 @@ from goctr_tpu_torch.ops.segsum import (
 from goctr_tpu_torch.optim.optimizers import Solver, make_solver
 from goctr_tpu_torch.optim.schedules import make_schedule
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
-from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 from goctr_tpu_torch.parallel.table_opt import TableOptConfig
+
+if TYPE_CHECKING:       # sparse_trainer imports this module
+    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 
 __all__ = ["TableOptConfig", "TrainedScanned", "train_sparse_scanned",
            "save_scanned_checkpoint", "load_scanned_checkpoint",

@@ -1,10 +1,18 @@
 """SparseCTR — item-id embeddings, DIN attention pool, dense tower
-(port of goctr_tpu/parallel/sparse_ctr.py:39-156, single device).
+(port of goctr_tpu/parallel/sparse_ctr.py:28-188 on the 1×1 mesh).
 
 The module owns the dense parameters under the JAX package's names
 (`att0`, `mlp.<i>`, `bias.<i>` in `state_dict()`, float32); the item
-table lives beside it (TrainedScanned, DeviceScorer), because the
-serving and training paths manage it in their own layouts.
+table lives beside it (TrainedScanned, TrainedSparseRanker,
+DeviceScorer), because the serving and training paths manage it in their
+own layouts. `apply(table, batch, mesh)` looks the batch's ids up in it
+(parallel/embedding.py) and routes as JAX's `apply` does: mean pooling on
+a plain table goes through kernel K3 (the fused gather + pool, rows
+pooled in float32, the result cast to the compute dtype); every other
+case gathers the rows (K1) and calls `apply_pooled`, which casts the
+rows to the compute dtype first and pools there. The mesh trainer's
+dense path and plain-table predict take the first; its sparse path, and
+predict on packed or grouped tables, the second.
 
 Numerics follow the JAX dtype policy: activations in `compute_dtype`,
 every tower matmul takes compute-dtype operands and returns float32
@@ -26,23 +34,37 @@ dw = bf16(xᵀ · g), both products in float32 from the float32 cotangent
 g. The weight's `.to(bf16)` then widens dw back to float32, as JAX's
 `astype(cd)` does. These are plain matmuls, left to cuBLAS on the card
 (with TF32 off) as JAX leaves them to XLA.
-
-`apply()` with the sharded lookup comes with the multi-GPU slice.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 
 from goctr_tpu_torch.core.dtypes import resolve_device
+from goctr_tpu_torch.core.meshes import Mesh
 from goctr_tpu_torch.models.base import dropout, glorot
 from goctr_tpu_torch.ops.activations import ACTIVATIONS
 from goctr_tpu_torch.ops.kernels.din_attention import DinAttentionPool
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
     init_packed_table_grouped,
 )
+from goctr_tpu_torch.parallel.embedding import (
+    EmbeddingSpec, init_table, sharded_lookup, sharded_pooled_lookup,
+)
 
 POOLINGS = ("din_attention", "mean")
+
+
+@dataclasses.dataclass
+class SparseBatch:
+    """One device batch of raw features."""
+    user_profile: torch.Tensor    # [B, U] float32 dense
+    behavior_ids: torch.Tensor    # [B, T] int32, -1 padded
+    item_ids: torch.Tensor        # [B] int32
+    ctx: torch.Tensor             # [B, C] float32 dense
+    labels: torch.Tensor          # [B] float32
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -116,6 +138,10 @@ class SparseCTR(nn.Module):
             nn.Parameter(torch.zeros(d, device=dev)) for d in dims[1:])
 
     @property
+    def spec(self) -> EmbeddingSpec:
+        return EmbeddingSpec("item", self.item_vocab, self.emb_dim)
+
+    @property
     def concat_dim(self) -> int:
         # profile + attention-pooled behaviors + item emb + ctx
         return self.u_profile_dim + 2 * self.emb_dim + self.ctx_dim
@@ -150,10 +176,7 @@ class SparseCTR(nn.Module):
         if table_group > 1:
             return init_packed_table_grouped(generator, self.item_vocab,
                                              self.emb_dim)
-        table = torch.randn((self.item_vocab, self.emb_dim),
-                            generator=generator, dtype=torch.float32,
-                            device=generator.device)
-        return table.mul_(0.01)
+        return init_table(generator, self.spec)
 
     def param_leaves(self) -> list[nn.Parameter]:
         """The dense parameters in JAX leaf order (att0, bias.*, mlp.*):
@@ -201,3 +224,33 @@ class SparseCTR(nn.Module):
                 h = dropout(act(h), self.dropout_rate, generator,
                             train).to(cd)
         return h[:, 0].float()   # logits
+
+    def apply(self, table: torch.Tensor, batch: SparseBatch, mesh: Mesh, *,
+              train: bool = False, generator: torch.Generator | None = None,
+              table_group: int = 1, table_packed: bool = False
+              ) -> torch.Tensor:
+        """Logits [B] of `batch` with the item rows looked up in `table`:
+        a plain [V, D] table, or with table_group > 1 grouped lines, or
+        with table_packed one-row-per-line [V, 128] (w | acc | pad) rows
+        (the lookups take the first emb_dim lanes). Differentiable with
+        respect to the dense parameters and a plain table. (The JAX
+        package's name; it shadows nn.Module.apply, which nothing here
+        calls.)"""
+        g = table_group
+        w = self.emb_dim if (g > 1 or table_packed) else 0
+        item = sharded_lookup(table, batch.item_ids, mesh,
+                              dedup_cap=self.lookup_dedup_cap, width=w,
+                              group=g)
+        if self.pooling == "mean" and g == 1 and not table_packed:
+            # kernel K3: the [B, T, D] behavior rows are never written
+            pooled = sharded_pooled_lookup(table, batch.behavior_ids, mesh,
+                                           combiner="mean")
+            return self._tower(batch.user_profile, pooled, item, batch.ctx,
+                               train=train, generator=generator)
+        behaviors = sharded_lookup(table, batch.behavior_ids, mesh,
+                                   dedup_cap=self.lookup_dedup_cap, width=w,
+                                   group=g)
+        mask = (batch.behavior_ids >= 0).float()
+        return self.apply_pooled(batch.user_profile, behaviors, item,
+                                 batch.ctx, mask, train=train,
+                                 generator=generator)

@@ -2,12 +2,12 @@
 goctr_tpu/parallel/table_opt.py:14-115).
 
 Same fields, same defaults, same meaning as the JAX TableOptConfig, minus
-three that have no counterpart in the port yet:
+two that have no counterpart in the port (a checkpoint's `table_opt`
+that holds them loads without them, models/io.py):
   * `pallas_interpret` selects a TPU emulation of the Pallas kernels; the
     port's kernels run on the card, their plain versions on the CPU;
   * `gather_impl` chooses between JAX gathers of the packed table; the
-    port has one gather, kernel K1;
-  * `exchange_cap` belongs to the multi-GPU sharded update (ROADMAP A5).
+    port has one gather, kernel K1.
 
 The port's scanned trainer accepts every update_mode of the JAX
 trainer; each picks the table's layout and the kernel of its update
@@ -20,7 +20,10 @@ trainer; each picks the table's layout and the kernel of its update
   * dedup    — [V + junk, D] table and [V + junk] accumulator; torch;
   * sorted, plain — [V, D] table and [V] accumulator; torch, adagrad per
                occurrence.
-The three packed modes require emb_dim < 128.
+The three packed modes require emb_dim < 128. The mesh trainer
+(parallel/train.py) routes the modes its own way: fused2 and runfused
+take the fused row update there (K5 or split), dedup, sorted and plain
+one scatter pair.
 """
 from __future__ import annotations
 
@@ -49,6 +52,11 @@ class TableOptConfig:
     ROWS_PER_STEP); uniques beyond it DROP their update and are counted
     (TrainedScanned.update_overflow_max). 0 keeps the position-aligned
     stream (exact for any batch).
+    exchange_cap: the mesh trainer's sparse step (parallel/train.py)
+    compacts each batch's row gradients to at most this many unique (id,
+    run-sum) rows (rounded up to ROWS_PER_STEP; 0 = all of them, exact for
+    any batch); uniques beyond it DROP their update and are counted
+    (TrainedSparseRanker.lookup_overflow_max).
     compact_impl: "xla" (rank-sort compaction in plain torch, the JAX
     package's default) or "kernel" (kernel K9, csrc/compact_runsums.cu).
     rmw_impl: "split" — read the lines with kernel K1, compute the
@@ -62,5 +70,6 @@ class TableOptConfig:
     update_mode: str = "fused"
     sorted_gather: bool = False
     compact_cap: int = 0
+    exchange_cap: int = 0
     compact_impl: str = "xla"   # xla | kernel
     rmw_impl: str = "split"

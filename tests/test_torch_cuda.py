@@ -21,7 +21,12 @@ rows on a dyadic grid (multiples of 1/16, |g| <= 1/4) and accumulators
 that are multiples of 1/64, so every run sum, cumsum and ‖Σg‖² is exact
 in f32 whatever the order of its adds: K8's sums in tile order equal the
 plain version's cumsum differences, and only rsqrtf may differ — the
-same rtol 1e-6, atol 1e-7, untouched lines bit exact.
+same rtol 1e-6, atol 1e-7, untouched lines bit exact. K3 sums the same
+f32 rows in another order than its plain version (atol 1e-6, rtol 1e-5);
+ids past the table give NaN rows in both. Its backward is torch glue:
+held to autograd through the plain pool in f64; index_add_'s f32 atomics
+add a row's terms (up to ~2·10^4 for a hot id) in any order, so each
+entry lies within 1e-4 of the sum of its terms' magnitudes (+1e-7).
 """
 import numpy as np
 import pytest
@@ -29,6 +34,7 @@ import torch
 
 from goctr_tpu_torch.ops.kernels import compact as k9
 from goctr_tpu_torch.ops.kernels import din_attention as k2
+from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
 from goctr_tpu_torch.ops.kernels import row_gather as k1
 from goctr_tpu_torch.ops.kernels import row_optimizer as tro
 from goctr_tpu_torch.ops.kernels import run_optimizer as k8
@@ -87,6 +93,61 @@ def test_gather_kernel_matches_plain(cuda, layout):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
     assert k1.gather_rows.launches == before + 2
+
+
+def _pool_inputs(b, k, v, d, dev, seed=7):
+    """Zipf-like ids (a hot head repeats) with pads, a fully padded row
+    and two ids past the table."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(0, 0.1, (v, d)).astype(np.float32)
+    ids = np.minimum(rng.zipf(1.3, (b, k)) - 1, v - 1).astype(np.int32)
+    ids[rng.random((b, k)) < 0.25] = -1
+    ids[min(1, b - 1)] = -1
+    if b > 3:
+        ids[2, 0], ids[3, k - 1] = v, v + 100
+    return (torch.from_numpy(table).to(dev), torch.from_numpy(ids).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,d", [(4096, 32, 64), (8191, 32, 64),
+                                   (1000, 1, 64), (777, 40, 16),
+                                   (512, 9, 128), (300, 5, 256),
+                                   (256, 7, 3), (256, 6, 10)])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_gather_pool_kernel_matches_plain(cuda, combiner, b, k, d):
+    table, ids = _pool_inputs(b, k, 5000, d, cuda)
+    before = k3.fused_gather_pool.launches
+    got = k3.fused_gather_pool(table, ids, combiner)
+    want = k3.fused_gather_pool_plain(table, ids, combiner)
+    torch.cuda.synchronize()
+    assert k3.fused_gather_pool.launches == before + 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if b > 3:
+        assert bool(torch.isnan(got[2]).all()) and bool((got[1] == 0).all())
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gather_pool_mean_gradient(cuda):
+    table, ids = _pool_inputs(2048, 32, 3000, 64, cuda)
+    g = torch.randn(2048, 64, device=cuda)
+    t = table.clone().requires_grad_()
+    before = k3.fused_gather_pool.launches
+    k3.GatherPoolMean.apply(t, ids).backward(g)
+    assert k3.fused_gather_pool.launches == before + 1
+    valid = ids >= 0
+    ok = valid & (ids < table.shape[0])
+    count = valid.sum(1, keepdim=True).clamp_min(1)
+
+    def plain_grad(gg):            # autograd through the plain pool, f64
+        t2 = table.double().requires_grad_()
+        rows = t2[torch.where(ok, ids, 0).long()] * ok[..., None]
+        (rows.sum(1) / count).backward(gg.double())
+        return t2.grad
+
+    err = (t.grad.double() - plain_grad(g)).abs()
+    assert bool((err <= 1e-4 * plain_grad(g.abs()) + 1e-7).all())
 
 
 def _din_bwd_inputs(b, t, d, dtype, dev, seed=5):
