@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits nonzero:
   1. build   — compile every CUDA kernel of the port from
                goctr_tpu_torch/csrc/ (one nvcc per source, in parallel);
-               print the card's name and power limit.
+               print each kernel's registers, shared memory and spills
+               (ptxas) and the card's name and power limit.
   2. kernels — each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it (K1 on the plain and
                packed layouts with out-of-range ids; K2 at the headline
@@ -83,9 +84,13 @@ Phases, in order; any failure raises and the script exits nonzero:
                update and K5 against one scanned epoch from the same
                start, a control (each run written to the next id's line);
                one epoch of the 100M × 16 grouped-resident lines through
-               the mesh step (K6); small f32 mesh trainers card vs CPU.
-Then it prints the card line, the `kernels` JSON line (ten kernels)
-and, last, {"ok": true, "device": {...}}.
+               the mesh step (K6); small f32 mesh trainers card vs CPU
+               (tanh towers over 3 epochs; relu towers over one step,
+               with a control).
+Phases 6 and 7 also time K1's forward gather and K2 on the first step's
+own inputs. Then it prints the card line, the `kernels` JSON line (the
+ten kernels, K2 at the serving and at the headline training shape) and,
+last, {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
 """
@@ -1176,18 +1181,45 @@ def time_sorted_kernels(torch, step):
 
 
 def time_train_kernels(torch, step):
-    """Device ms of K2b, K9, K4 and K5 or K6 and their plain versions
-    (K4's library call; the split update beside the one-pass one) on the
-    first step's inputs, with their bounds. The timed updates run on the
-    step's own copy of the table."""
+    """Device ms of K1's forward gather, K2, K2b, K9, K4 and K5 or K6 and
+    their plain versions (K1's and K4's library calls; the split update
+    beside the one-pass one) on the first step's inputs, with their
+    bounds. The timed updates run on the step's own copy of the table."""
     from goctr_tpu_torch.ops.kernels import compact as k9
     from goctr_tpu_torch.ops.kernels import din_attention as k2
+    from goctr_tpu_torch.ops.kernels import row_gather as k1
     from goctr_tpu_torch.ops.kernels import row_optimizer as k4
 
-    V, D = step["V"], step["D"]
+    V, D, G = step["V"], step["D"], step["group"]
     pool = step["pool"]
     B, T, _ = pool[1].shape
     out = {}
+    # K1, the forward gather: ids and bf16 rows once each, and each
+    # distinct id's D f32 weights once; index_select gathers whole lines
+    ids = step["gather_ids"]
+    table = step["table"]
+    lines = ids // G if G > 1 else ids
+    out["K1"] = dict(
+        ms=device_ms(torch, lambda i: k1.gather_rows(
+            table, ids, group=G, dim=D, out_dtype=torch.bfloat16), 1),
+        plain_ms=device_ms(torch, lambda i: k1.gather_rows_plain(
+            table, ids, group=G, dim=D, out_dtype=torch.bfloat16), 1,
+            iters=6),
+        library_ms=device_ms(torch, lambda i: torch.index_select(
+            table, 0, lines), 1),
+        bytes=ids.numel() * (4 + D * 2) + torch.unique(ids).numel() * D * 4,
+        flops=0)
+    # K2 on the pooled rows' inputs: behaviors read once, item, mask, att0
+    # and the output once
+    _, beh, item, att0, mask = pool
+    out["K2"] = dict(
+        ms=device_ms(torch, lambda i: k2.din_attention_pool(
+            beh, item, att0, mask), 1),
+        plain_ms=device_ms(torch, lambda i: k2.din_attention_pool_plain(
+            beh, item, att0, mask), 1, iters=6),
+        library_ms=None,
+        bytes=B * T * D * 2 + 2 * B * D * 2 + B * T * 4 + T * 4,
+        flops=B * T * (6 * D + 12))
     b2 = (2 * B * T * D * 2 + 3 * B * D * 2 + B * T * 4 + 2 * T * 4)
     f2 = B * T * (13 * D + 30)
     out["K2b"] = dict(
@@ -1236,8 +1268,9 @@ def time_train_kernels(torch, step):
                             r["flops"] / F32_FLOPS_PER_S) * 1e3
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / F32_FLOPS_PER_S else "operations")
-        lib = ("" if r["library_ms"] is None
-               else f", index_copy_ {r['library_ms']:.5f}")
+        lib = ("" if r["library_ms"] is None else
+               f", {'index_select (lines)' if key == 'K1' else 'index_copy_'}"
+               f" {r['library_ms']:.5f}")
         split_ = ("" if "split_ms" not in r else
                   f", split update (K1 read + torch + K4) "
                   f"{r['split_ms']:.5f}")
@@ -1969,9 +2002,16 @@ def profile_dense_step(torch, result, sample, cfg, mesh):
 def small_mesh_check(torch, dev, mesh):
     """Small f32 trainers (tanh tower, table adagrad lr 0.05) on the card
     (kernels) against the port on the CPU (plain versions), 3 shuffled
-    epochs from the same start: the dense path with mean and DIN pooling, the sparse path in fused (split
-    at D = 8, K5 / K6 at D = 64 / 8), fused2, runfused and dedup at D = 8
-    and D = 64."""
+    epochs from the same start: the dense path with mean and DIN pooling,
+    the sparse path in fused (split at D = 8, K5 / K6 at D = 64 / 8),
+    fused2, runfused and dedup at D = 8 and D = 64. Then relu towers (the
+    headline's activation) over one step (the first 1024 rows, batch 1024,
+    one epoch): the dense path with DIN pooling and the sparse path in fused
+    with rmw_impl="kernel", at D = 8 and D = 64, and a control (one row of
+    the card's dense D = 64 table written as the next id's) that must
+    exceed the table limit. Returns the control's entries outside."""
+    import dataclasses
+
     from goctr_tpu_torch.core.meshes import single_device_mesh
     from goctr_tpu_torch.models.trainer import TrainerConfig
     from goctr_tpu_torch.parallel.scanned import TableOptConfig
@@ -2007,21 +2047,23 @@ def small_mesh_check(torch, dev, mesh):
                   (dd, "mean", dict(update_mode="runfused")),
                   (dd, "din_attention", dict(update_mode="dedup"))]
     cases.append((8, "din_attention", dict(update_mode="fused")))
-    worst = [0.0, 0.0]
-    for dd, pooling, change in cases:
+
+    def train_pair(dd, pooling, change, activation, smp, tcfg, worst):
+        """(CPU result, card result) from one start, held to the limits."""
         mc = dict(item_vocab=vocab, emb_dim=dd, u_profile_dim=4, ctx_dim=2,
                   behavior_len=5, hidden=(16,), pooling=pooling,
-                  activation="tanh")
+                  activation=activation)
         m0 = SparseCTR(**mc, device="cpu")
         start = TrainedSparseRanker(
             model=m0, table=m0.init_params(torch.Generator().manual_seed(
                 SEED)), mesh=cpu, loss_curve=[])
         topt = (None if change is None
                 else TableOptConfig(kind="adagrad", lr=0.05, **change))
-        c, g = (train_sparse(SparseCTR(**mc, device=m.device), sample, m,
-                             cfg, table_opt=topt, resume_from=start)
+        c, g = (train_sparse(SparseCTR(**mc, device=m.device), smp, m,
+                             tcfg, table_opt=topt, resume_from=start)
                 for m in (cpu, mesh))
-        what = f"small mesh trainer D={dd} {pooling} {change or 'dense'}"
+        what = (f"small mesh trainer D={dd} {pooling} {activation} "
+                f"{change or 'dense'}")
         lc = np.abs(np.array(g.loss_curve) - c.loss_curve) / np.abs(
             c.loss_curve)
         worst[0] = max(worst[0], float(lc.max()))
@@ -2036,11 +2078,42 @@ def small_mesh_check(torch, dev, mesh):
             worst[1] = max(worst[1], err)
             require(bad == 0, f"{what}: {name} {bad} entries outside (max "
                               f"err {err:.3g})")
+        return c, g
+
+    worst = [0.0, 0.0]
+    for dd, pooling, change in cases:
+        train_pair(dd, pooling, change, "tanh", sample, cfg, worst)
     log(f"[mesh] small f32 mesh trainers, card (kernels) vs CPU (plain), "
         f"{len(cases)} configurations (dense mean and DIN; fused, fused2, "
         f"runfused, dedup at D = 8 and 64), 3 epochs: max loss rel diff "
         f"{worst[0]:.3g} (rtol {TRAJ_LOSS_RTOL}), max table/acc err "
         f"{worst[1]:.3g} (rtol {TRAJ_TABLE_RTOL}, atol {TRAJ_TABLE_ATOL})")
+    # relu towers over one step: adam's and adagrad's first steps scale
+    # each entry by its own gradient's size, so a relu pre-activation
+    # within rounding of 0 for one row moves a weight's gradient by that
+    # row's share without changing its step, and nothing compounds
+    one = SparseSample(**{f.name: getattr(sample, f.name)[:1024]
+                          for f in dataclasses.fields(sample)})
+    cfg1 = dataclasses.replace(cfg, epochs=1)
+    relu = [0.0, 0.0]
+    for dd in (8, 64):
+        train_pair(dd, "din_attention", dict(update_mode="fused",
+                                             rmw_impl="kernel"),
+                   "relu", one, cfg1, relu)
+        c, g = train_pair(dd, "din_attention", None, "relu", one, cfg1, relu)
+    # control: the card's D = 64 dense table with one trained row written
+    # as the next id's
+    row = int(one.item_ids[0])              # trained in this step
+    wrong = g.table.cpu().clone()
+    wrong[row] = wrong[(row + 1) % vocab]
+    ctl, _ = within(torch, wrong, c.table, TRAJ_TABLE_RTOL, TRAJ_TABLE_ATOL)
+    log(f"[mesh] relu towers, one step, card vs CPU: dense DIN and sparse "
+        f"fused K5/K6 at D = 8 and 64: max loss rel diff {relu[0]:.3g} "
+        f"(rtol {TRAJ_LOSS_RTOL}), max table/acc err {relu[1]:.3g} (rtol "
+        f"{TRAJ_TABLE_RTOL}, atol {TRAJ_TABLE_ATOL}); control, row {row} "
+        f"written as the next id's: {ctl} entries outside")
+    require(ctl > 0, "relu control: a wrong table row passes the limit")
+    return ctl
 
 
 def sparse_mesh_path(torch, dev, gen, mesh, sample, counted):
@@ -2218,7 +2291,7 @@ def mesh_phase(torch, dev, gen):
     ctl["mesh sparse next id"] = sparse_mesh_path(torch, dev, gen, mesh,
                                                   sample, counted)
     torch.cuda.empty_cache()
-    small_mesh_check(torch, dev, mesh)
+    ctl["relu small mesh row shifted"] = small_mesh_check(torch, dev, mesh)
     log(f"[mesh] done in {time.perf_counter() - t_phase:.1f} s: dense "
         f"steady {steady:.1f} ex/s, profiled step device busy "
         f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}; K3 launches "
@@ -2263,6 +2336,9 @@ def main() -> int:
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; card: {card}")
+    for name in libs:                   # ptxas: registers, smem, spills
+        for line in _build.resources(name):
+            log(f"[build] {name}: {line}")
 
     # headline model, table and requests -----------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2426,6 +2502,9 @@ def main() -> int:
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
     for key, name, src, replaces, times, counts, count_name in (
+            ("K2", "din_attention (training)", "din_attention.cu",
+             "goctr_tpu/ops/pallas/din_attention.py:97", t6, l6,
+             "din_attention_pool"),
             ("K2b", "din_attention_bwd", "din_attention_bwd.cu",
              "goctr_tpu/parallel/sparse_ctr.py:128", t6, l6,
              "din_attention_pool_bwd"),

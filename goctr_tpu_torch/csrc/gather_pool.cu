@@ -14,7 +14,7 @@
 // a NaN row (what `jnp.take` returns for it, and what K1 returns), but it
 // counts as valid, as in the JAX function. The TPU kernel's three gates
 // (D % 128 == 0, B % 8 == 0, K >= 8) are Mosaic tiling limits, not
-// semantics: this kernel takes any B, any K and 1 <= D <= 256.
+// semantics: this kernel takes any B, any K and any D >= 1.
 //
 // What bounds it on the H100: bytes. Each batch row reads K ids and up to
 // K table rows (D * 4 bytes each, 256 B at D = 64) from random places of a
@@ -34,9 +34,10 @@
 // before it adds any (8 rows at D = 64): one load in flight per warp left
 // K2 and K2b at 3.6x and 3.0x their bound. The S partial sums are combined
 // by xor shuffles; the first slot divides (IEEE division, as JAX's `/`) and
-// writes. The [B, K, D] rows never leave registers. The TPU kernel's
-// double-buffered row DMAs have no counterpart to port: many warps in
-// flight hide the latency instead.
+// writes. A row wider than 256 floats is pooled in column chunks of 256
+// (the K loop runs once a chunk). The [B, K, D] rows never leave
+// registers. The TPU kernel's double-buffered row DMAs have no counterpart
+// to port: many warps in flight hide the latency instead.
 // Plain version: fused_gather_pool_plain in
 // goctr_tpu_torch/ops/kernels/embedding_lookup.py.
 #include <cuda_runtime.h>
@@ -47,7 +48,7 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kUnroll = 4;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDim = 256;
+constexpr int kChunk = 256;   // columns a pass
 
 template <int VEC>
 __device__ __forceinline__ void load(const float* p, float (&v)[VEC]);
@@ -85,14 +86,15 @@ __device__ __forceinline__ void store<4>(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// VEC floats a load, CH loads a lane per table row (lpr lanes cover a row:
-// CH * lpr * VEC >= D), MEAN divides by the valid count.
+// VEC floats a load, CH loads a lane per table row (lpr lanes cover a
+// chunk of cw = CH * lpr * VEC columns; the chunks cover D), MEAN divides
+// by the valid count.
 template <int VEC, int CH, bool MEAN>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_pool_kernel(const float* __restrict__ table,
                    const int* __restrict__ ids, float* __restrict__ out,
                    long long batch, int k, long long n_rows, int dim,
-                   int lpr) {
+                   int lpr, int cw) {
   const long long row =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
   if (row >= batch) return;  // the whole warp: row is the warp's
@@ -101,64 +103,68 @@ gather_pool_kernel(const float* __restrict__ table,
   const int col = lane % lpr;
   const int slots = 32 / lpr;
   const float nan = __int_as_float(0x7fc00000);
-  float acc[CH][VEC];
-#pragma unroll
-  for (int c = 0; c < CH; ++c)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[c][e] = 0.f;
-  int count = 0;
   const int* row_ids = ids + row * k;
-  for (int k0 = 0; k0 < k; k0 += 32) {
-    const int n = min(32, k - k0);
-    const int my_id = lane < n ? __ldg(row_ids + k0 + lane) : -1;
-    count += __popc(__ballot_sync(kFull, my_id >= 0));
-    // every lane runs the same trip count, so the shuffles stay converged
-    for (int j0 = 0; j0 < n; j0 += slots * kUnroll) {
-      float v[kUnroll][CH][VEC];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + u * slots + slot;
-        const int id = __shfl_sync(kFull, my_id, j & 31);
-        const bool live = j < n && id >= 0;
-        const float* src = table + static_cast<long long>(id) * dim;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          const int d0 = (col + c * lpr) * VEC;
-          if (live && d0 < dim && id < n_rows) {
-            load<VEC>(src + d0, v[u][c]);
-          } else {
-            const float fill = live ? nan : 0.f;  // id >= V: a NaN row
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) v[u][c][e] = fill;
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int c = 0; c < CH; ++c)
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[c][e] += v[u][c][e];
-    }
-  }
-  // combine the slots: lanes lpr apart hold the same columns
-  for (int off = lpr; off < 32; off <<= 1)
+  for (int c0 = 0; c0 < dim; c0 += cw) {
+    float acc[CH][VEC];
 #pragma unroll
     for (int c = 0; c < CH; ++c)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        acc[c][e] += __shfl_xor_sync(kFull, acc[c][e], off);
-  if (slot != 0) return;
-  const float denom = fmaxf(static_cast<float>(count), 1.f);
-  float* dst = out + row * dim;
+      for (int e = 0; e < VEC; ++e) acc[c][e] = 0.f;
+    int count = 0;
+    for (int k0 = 0; k0 < k; k0 += 32) {
+      const int n = min(32, k - k0);
+      const int my_id = lane < n ? __ldg(row_ids + k0 + lane) : -1;
+      count += __popc(__ballot_sync(kFull, my_id >= 0));
+      // every lane runs the same trip count, so the shuffles stay converged
+      for (int j0 = 0; j0 < n; j0 += slots * kUnroll) {
+        float v[kUnroll][CH][VEC];
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int d0 = (col + c * lpr) * VEC;
-    if (d0 >= dim) continue;
-    float r[VEC];
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = j0 + u * slots + slot;
+          const int id = __shfl_sync(kFull, my_id, j & 31);
+          const bool live = j < n && id >= 0;
+          const float* src = table + static_cast<long long>(id) * dim;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) r[e] = MEAN ? acc[c][e] / denom : acc[c][e];
-    store<VEC>(dst + d0, r);
+          for (int c = 0; c < CH; ++c) {
+            const int d0 = c0 + (col + c * lpr) * VEC;
+            if (live && d0 < dim && id < n_rows) {
+              load<VEC>(src + d0, v[u][c]);
+            } else {
+              const float fill = live ? nan : 0.f;  // id >= V: a NaN row
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) v[u][c][e] = fill;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int c = 0; c < CH; ++c)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[c][e] += v[u][c][e];
+      }
+    }
+    // combine the slots: lanes lpr apart hold the same columns
+    for (int off = lpr; off < 32; off <<= 1)
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[c][e] += __shfl_xor_sync(kFull, acc[c][e], off);
+    if (slot == 0) {
+      const float denom = fmaxf(static_cast<float>(count), 1.f);
+      float* dst = out + row * dim;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int d0 = c0 + (col + c * lpr) * VEC;
+        if (d0 >= dim) continue;
+        float r[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          r[e] = MEAN ? acc[c][e] / denom : acc[c][e];
+        store<VEC>(dst + d0, r);
+      }
+    }
   }
 }
 
@@ -170,15 +176,16 @@ template <int VEC, int CH>
 void launch_vc(const float* t, const int* i, float* o, long long batch,
                int k, long long n_rows, int dim, int lpr, bool mean,
                cudaStream_t s) {
+  const int cw = CH * lpr * VEC;
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid(static_cast<unsigned>(
       (batch + kWarpsPerBlock - 1) / kWarpsPerBlock));
   if (mean) {
     gather_pool_kernel<VEC, CH, true><<<grid, block, 0, s>>>(
-        t, i, o, batch, k, n_rows, dim, lpr);
+        t, i, o, batch, k, n_rows, dim, lpr, cw);
   } else {
     gather_pool_kernel<VEC, CH, false><<<grid, block, 0, s>>>(
-        t, i, o, batch, k, n_rows, dim, lpr);
+        t, i, o, batch, k, n_rows, dim, lpr, cw);
   }
 }
 
@@ -188,9 +195,9 @@ void launch_v(const float* t, const int* i, float* o, long long batch,
   const int nvec = dim / VEC;
   int lpr = 1;
   while (lpr < nvec && lpr < 32) lpr <<= 1;
-  // loads a lane per row: 1, 2, 4 or 8, at most kMaxDim / (32 * VEC)
+  // loads a lane per row a chunk: 1, 2, 4 or 8, at most kChunk / (32 * VEC)
   int ch = 1;
-  while (ch * lpr < nvec) ch <<= 1;
+  while (ch * lpr < nvec && ch * lpr * VEC < kChunk) ch <<= 1;
   if (ch == 1) {
     launch_vc<VEC, 1>(t, i, o, batch, k, n_rows, dim, lpr, mean, s);
   } else if (ch == 2) {
@@ -211,7 +218,7 @@ void launch_v(const float* t, const int* i, float* o, long long batch,
 extern "C" int gather_pool_f32(const void* table, const void* ids, void* out,
                                long long batch, int k, long long n_rows,
                                int dim, int mean, void* stream) {
-  if (dim < 1 || dim > kMaxDim || k < 0) {
+  if (dim < 1 || k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0) return 0;

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -56,7 +57,8 @@ def library_path(name: str) -> Path:
 def build(*names: str) -> dict[str, Path]:
     """Compile the named sources that have no current library, one nvcc
     process per source, all started together. Raises with nvcc's output
-    if any build fails."""
+    if any build fails; keeps ptxas's report of each kernel's registers,
+    shared memory and spills beside the library (`resources`)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {name: library_path(name) for name in names}
     procs = {}
@@ -74,10 +76,32 @@ def build(*names: str) -> dict[str, Path]:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n"
                           f"{log}")
             continue
+        out[name].with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, out[name])          # atomic: readers never see half
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return out
+
+
+def resources(name: str) -> list[str]:
+    """ptxas's report for csrc/<name>.cu's current library, one line a
+    kernel: its (mangled) name, registers, shared memory and spills; empty
+    when the library was built before the report was kept."""
+    path = library_path(name).with_suffix(".ptxas.txt")
+    if not path.exists():
+        return []
+    lines, entry, spills = [], None, ""
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spills = m[1], ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif entry and "Used" in line:
+            lines.append(f"{entry}: {line.split('Used', 1)[1].strip()}; "
+                         f"{spills}")
+            entry = None
+    return lines
 
 
 def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:

@@ -25,7 +25,8 @@ the `torch.autograd.Function` that ties them: forward K2, backward K2b.
 The JAX trainer differentiates the inline pool (no Pallas backward); the
 plain backward writes that derivative out, with the eps² norm clamp of
 cosine_similarity (a zero behavior row gets an exactly zero gradient
-through its norm, never a NaN).
+through its norm, never a NaN). K2b and its plain version work in float32
+for bfloat16 inputs and in float64 for float32 inputs.
 """
 from __future__ import annotations
 
@@ -38,22 +39,37 @@ from goctr_tpu_torch.ops.activations import cosine_similarity
 from goctr_tpu_torch.ops.kernels import _build
 
 _NAME = "din_attention"
-# (behaviors, item, att0, mask, out, batch, seq, dim, stream)
+# (behaviors, item, att0, mask, out, batch, seq, dim, stream, n_sms)
 _SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
 _ARGTYPES = {"din_attention_f32": _SIGNATURE,
              "din_attention_bf16": _SIGNATURE}
-MAX_DIM = 256                      # csrc/din_attention.cu kMaxDim
 _BWD_NAME = "din_attention_bwd"
 # (dout, behaviors, item, att0, mask, d_beh, d_item, d_att0, partial,
-#  batch, seq, dim, stream)
+#  batch, seq, dim, stream, n_sms)
 _BWD_SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
 _BWD_ARGTYPES = {"din_attention_bwd_f32": _BWD_SIGNATURE,
                  "din_attention_bwd_bf16": _BWD_SIGNATURE}
-BWD_ROWS_PER_BLOCK = 8             # csrc/din_attention_bwd.cu kWarpsPerBlock
-BWD_MAX_SEQ = 4096                 # d_att0 partials: 8·T floats of smem
+# the persistent grid (csrc/din_pool.cuh): WARPS_PER_BLOCK warps a block,
+# at most BLOCKS_PER_SM blocks an SM; K2b's d_att0 partials take one float
+# a t for each warp slot
+WARPS_PER_BLOCK = 4                # kWarps
+BLOCKS_PER_SM = 4                  # kBlocksPerSM
 _count_lock = threading.Lock()
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, which sizes the kernels' persistent grid."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def bwd_partial_floats(batch: int, seq: int, n_sms: int) -> int:
+    """Floats of K2b's d_att0 partials: seq for each warp slot the grid can
+    have (csrc/din_attention_bwd.cu takes min(BLOCKS_PER_SM · n_sms, the
+    blocks its jobs need) blocks, and a job holds at least one row)."""
+    blocks = min(BLOCKS_PER_SM * n_sms, -(-batch // WARPS_PER_BLOCK))
+    return seq * WARPS_PER_BLOCK * blocks
 
 
 def _check(behaviors, item, att0, mask) -> None:
@@ -76,8 +92,6 @@ def _check(behaviors, item, att0, mask) -> None:
             raise ValueError("all inputs must be on one device")
     if not all(x.is_contiguous() for x in (behaviors, item, att0, mask)):
         raise ValueError("din_attention_pool inputs must be contiguous")
-    if d > MAX_DIM:
-        raise ValueError(f"emb dim {d} > {MAX_DIM} is not supported")
 
 
 def din_attention_pool_plain(behaviors: torch.Tensor, item: torch.Tensor,
@@ -115,7 +129,8 @@ def din_attention_pool(behaviors: torch.Tensor, item: torch.Tensor,
         else lib.din_attention_f32
     code = fn(behaviors.data_ptr(), item.data_ptr(), att0.data_ptr(),
               mask.data_ptr(), out.data_ptr(), b, t, d,
-              torch.cuda.current_stream(behaviors.device).cuda_stream)
+              torch.cuda.current_stream(behaviors.device).cuda_stream,
+              sm_count(behaviors.device))
     _build.check(lib, _NAME, code)
     with _count_lock:
         din_attention_pool.launches += 1
@@ -130,17 +145,23 @@ def din_attention_pool_bwd_plain(dout: torch.Tensor,
                                  item: torch.Tensor, att0: torch.Tensor,
                                  mask: torch.Tensor):
     """Plain PyTorch version of K2b: (d_behaviors, d_item) in the input
-    dtype and d_att0 [T] float32, all arithmetic float32 (the formulas are
-    written out in csrc/din_attention_bwd.cu)."""
-    b = behaviors.float()
-    i = item.float()[:, None, :]
-    go = dout.float()[:, None, :]
+    dtype and d_att0 [T] float32 (the formulas are written out in
+    csrc/din_attention_bwd.cu). Arithmetic is float32 for bfloat16 inputs
+    and float64 for float32 inputs, as in the kernel: a zero item row's
+    d_item is a sum over t of terms that cancel, which float32 rounding
+    moves by ~1e-5 of itself; the clamps are the float32 eps and eps²."""
+    wt = torch.float64 if behaviors.dtype == torch.float32 else torch.float32
+    b = behaviors.to(wt)
+    i = item.to(wt)[:, None, :]
+    go = dout.to(wt)[:, None, :]
+    eps = float(torch.tensor(1e-8, dtype=torch.float32))
     e2 = float(torch.tensor(1e-8, dtype=torch.float32) ** 2)
+    att0, mask = att0.to(wt), mask.to(wt)
     bb = (b * b).sum(-1)                                   # [B, T]
     ii = (i * i).sum(-1)                                   # [B, 1]
     nb = torch.sqrt(torch.clamp(bb, min=e2))
     ni = torch.sqrt(torch.clamp(ii, min=e2))
-    den = nb * ni + 1e-8
+    den = nb * ni + eps
     cos = (b * i).sum(-1) / den
     w = (cos + 1.0) * 0.5
     g = torch.sigmoid(w * att0)
@@ -155,7 +176,8 @@ def din_attention_pool_bwd_plain(dout: torch.Tensor,
     d_b = ((g * mask / den_m)[..., None] * go + ddot[..., None] * i
            + cb[..., None] * b)
     d_i = (ddot[..., None] * b).sum(1) + ci * i[:, 0]
-    return d_b.to(behaviors.dtype), d_i.to(item.dtype), d_att0
+    return (d_b.to(behaviors.dtype), d_i.to(item.dtype),
+            d_att0.to(torch.float32))
 
 
 def din_attention_pool_bwd(dout: torch.Tensor, behaviors: torch.Tensor,
@@ -179,23 +201,22 @@ def din_attention_pool_bwd(dout: torch.Tensor, behaviors: torch.Tensor,
     if behaviors.device.type != "cuda":
         raise ValueError(f"no din_attention_bwd kernel for "
                          f"{behaviors.device}")
-    if t > BWD_MAX_SEQ:
-        raise ValueError(f"T = {t} > {BWD_MAX_SEQ} is not supported")
     d_beh = torch.empty_like(behaviors)
     d_item = torch.empty_like(item)
     d_att0 = torch.empty(t, dtype=torch.float32, device=behaviors.device)
     if b == 0:
         return d_beh, d_item, d_att0.zero_()
-    n_blocks = -(-b // BWD_ROWS_PER_BLOCK)
-    partial = torch.empty(t * n_blocks, dtype=torch.float32,
-                          device=behaviors.device)
+    n_sms = sm_count(behaviors.device)
+    partial = torch.empty(bwd_partial_floats(b, t, n_sms),
+                          dtype=torch.float32, device=behaviors.device)
     lib = _build.load(_BWD_NAME, _BWD_ARGTYPES)
     fn = lib.din_attention_bwd_bf16 if behaviors.dtype == torch.bfloat16 \
         else lib.din_attention_bwd_f32
     code = fn(dout.data_ptr(), behaviors.data_ptr(), item.data_ptr(),
               att0.data_ptr(), mask.data_ptr(), d_beh.data_ptr(),
               d_item.data_ptr(), d_att0.data_ptr(), partial.data_ptr(),
-              b, t, d, torch.cuda.current_stream(behaviors.device).cuda_stream)
+              b, t, d, torch.cuda.current_stream(behaviors.device).cuda_stream,
+              n_sms)
     _build.check(lib, _BWD_NAME, code)
     with _count_lock:
         din_attention_pool_bwd.launches += 1

@@ -15,7 +15,7 @@ the semantics of `fused_gather_pool_jnp`, which JAX runs at the trainer's
 shapes: a fully padded row gives 0, and an id >= V adds a NaN row (the
 fill of `jnp.take`, and what K1 returns for it) while counting as valid.
 The TPU kernel's gates (D % 128 == 0, B % 8 == 0, K >= 8) are Mosaic
-tiling limits; the port takes any B, any K and D up to MAX_DIM.
+tiling limits; the port takes any B, any K and any D.
 
 `fused_gather_pool` launches the kernel for CUDA tensors and calls the
 plain version for CPU tensors; on any other device, or when the kernel
@@ -44,7 +44,6 @@ _NAME = "gather_pool"
 _ARGTYPES = {"gather_pool_f32": [ctypes.c_void_p] * 3
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
-MAX_DIM = 256                      # csrc/gather_pool.cu kMaxDim
 COMBINERS = ("sum", "mean")
 _count_lock = threading.Lock()
 
@@ -56,8 +55,8 @@ def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> None:
     if table.dim() != 2 or table.dtype != torch.float32:
         raise ValueError(f"table must be a 2-D float32 tensor, got "
                          f"{tuple(table.shape)} {table.dtype}")
-    if not 1 <= table.shape[1] <= MAX_DIM:
-        raise ValueError(f"emb dim {table.shape[1]} outside 1..{MAX_DIM}")
+    if table.shape[1] < 1:
+        raise ValueError(f"emb dim {table.shape[1]} must be at least 1")
     if ids.dim() != 2 or ids.dtype != torch.int32:
         raise ValueError(f"ids must be a 2-D int32 tensor, got "
                          f"{tuple(ids.shape)} {ids.dtype}")

@@ -13,7 +13,9 @@ Endpoint/schema parity with the reference gin server
 Ranking goes through the predictor's `rank_direct` (serve/scorer.py
 SparseRankPredictor: device-resident table, micro-batched). The
 host-assembly `Rank` path of the JAX server comes with the port of
-recommend/; until then a predictor without `rank_direct` gets 501. The
+recommend/; until then a predictor without `rank_direct` gets 501. Item
+ids outside the table get 400, naming them (the table has no row to score
+them: JAX's server answers a bare NaN for an id past the table). The
 /service/* endpoints call the predictor's `rec_sys` duck-typed, with
 `None` in place of the JAX package's recommend Context.
 
@@ -27,6 +29,8 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
+
+from goctr_tpu_torch.serve.scorer import ItemIdsOutsideTable
 
 log = logging.getLogger(__name__)
 
@@ -62,8 +66,11 @@ class RecApiServer:
             return 501, {"error": "this predictor has no rank_direct; the "
                                   "host-assembly ranking path (recommend/) "
                                   "is not ported yet"}
-        pairs = self.predictor.rank_direct(user_id,
-                                           [int(i) for i in item_ids])
+        try:
+            pairs = self.predictor.rank_direct(user_id,
+                                               [int(i) for i in item_ids])
+        except ItemIdsOutsideTable as e:
+            return 400, {"error": str(e), "itemIdsOutsideTable": e.ids}
         return 200, {"itemScoreList": [
             {"itemId": i, "score": s} for i, s in pairs]}
 

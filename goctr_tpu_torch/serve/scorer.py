@@ -233,6 +233,16 @@ class MicroBatcher:
             b["ev"].set()
 
 
+class ItemIdsOutsideTable(ValueError):
+    """Candidate item ids outside [0, item_vocab): the table has no row for
+    them (K1 would give a NaN row past the table, a negative id is a pad).
+    `ids` lists them, in request order."""
+
+    def __init__(self, ids: list[int], item_vocab: int):
+        self.ids = ids
+        super().__init__(f"item ids outside [0, {item_vocab}): {ids}")
+
+
 @dataclasses.dataclass
 class SparseRankPredictor:
     """Predictor-shaped adapter for serve/api.py over a DeviceScorer:
@@ -253,6 +263,12 @@ class SparseRankPredictor:
 
     def rank_direct(self, user_id: int, item_ids: list[int]
                     ) -> list[tuple[int, float]]:
+        """Scores of `item_ids` for `user_id`; raises ItemIdsOutsideTable
+        for ids outside [0, item_vocab)."""
+        vocab = self.scorer.model.item_vocab
+        bad = [i for i in item_ids if not 0 <= i < vocab]
+        if bad:
+            raise ItemIdsOutsideTable(bad, vocab)
         n_users = self.user_profiles.shape[0]
         uid = user_id if 0 <= user_id < n_users else 0
         scores = self.batcher.submit(self.user_profiles[uid],

@@ -10,9 +10,11 @@ Tolerances: K1 is a copy plus a round-to-nearest-even cast — bit exact.
 K2 sums in f32 in another order than the plain version — atol 1e-6,
 rtol 1e-5 in f32; in bf16 both round an f32 value that agrees to a few
 f32 ulps, so they agree to one bf16 ulp — rtol 2^-7. K2b likewise on
-d_behaviors and d_item; its d_att0 sums B rows in another order (atol
-1e-5, rtol 1e-5). K4 is a copy — bit exact on every touched row, and
-every other row unchanged. K9 returns the same targets and overflow;
+d_behaviors and d_item (for float32 inputs K2b and its plain version both
+work in float64: a zero item row's d_item cancels over t, and float32
+rounding alone moves it by ~1e-5 of itself); its d_att0 sums B rows in
+another order (atol 1e-5, rtol 1e-5). K4 is a copy — bit exact on every
+touched row, and every other row unchanged. K9 returns the same targets and overflow;
 its run sums add the same f32 rows in another order, so each lies within
 1e-5 of the run's sum of |g| (plus 1e-6). K5 and K6 round each term as
 the plain version does; only rsqrtf may differ from torch.rsqrt — rtol
@@ -49,9 +51,17 @@ def cuda():
     return torch.device("cuda")
 
 
+# POOL_SHAPES: rows past 512 B (200, 264), rows of 6 or 12 bytes (D = 3:
+# the generic path), the grouped training shape (16 lanes a warp
+# instruction), B not a multiple of the persistent grid's warp slots, and
+# T = 5000 (T-tiles)
+POOL_SHAPES = [(64, 6, 264), (128, 9, 3), (65536, 32, 16), (5000, 32, 64),
+               (8, 5000, 16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,d", [(512, 300, 64), (256, 32, 16),
-                                   (64, 7, 200)])
+                                   (64, 7, 200), *POOL_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_din_kernel_matches_plain(cuda, dtype, b, t, d):
     rng = np.random.default_rng(4)
@@ -112,7 +122,8 @@ def _pool_inputs(b, k, v, d, dev, seed=7):
 @pytest.mark.parametrize("b,k,d", [(4096, 32, 64), (8191, 32, 64),
                                    (1000, 1, 64), (777, 40, 16),
                                    (512, 9, 128), (300, 5, 256),
-                                   (256, 7, 3), (256, 6, 10)])
+                                   (256, 7, 3), (256, 6, 10),
+                                   (300, 5, 264), (100, 7, 600)])
 @pytest.mark.parametrize("combiner", ["sum", "mean"])
 def test_gather_pool_kernel_matches_plain(cuda, combiner, b, k, d):
     table, ids = _pool_inputs(b, k, 5000, d, cuda)
@@ -166,7 +177,7 @@ def _din_bwd_inputs(b, t, d, dtype, dev, seed=5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,d", [(512, 32, 64), (64, 300, 16),
-                                   (37, 7, 200)])
+                                   (37, 7, 200), *POOL_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_din_bwd_kernel_matches_plain(cuda, dtype, b, t, d):
     args = _din_bwd_inputs(b, t, d, dtype, cuda)

@@ -26,9 +26,9 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 V, D = 50, 16
 
 
-def _inputs(b, k, seed=0, past_table=False):
+def _inputs(b, k, seed=0, past_table=False, d=D):
     rng = np.random.default_rng(seed)
-    table = rng.normal(0, 1, (V, D)).astype(np.float32)
+    table = rng.normal(0, 1, (V, d)).astype(np.float32)
     ids = rng.integers(0, V, (b, k)).astype(np.int32)
     ids[rng.random((b, k)) < 0.3] = -1                    # pads
     ids[1] = -1                                           # a fully padded row
@@ -42,7 +42,7 @@ def _port(table, ids, combiner):
     out = k3.fused_gather_pool(torch.from_numpy(table), torch.from_numpy(ids),
                                combiner)
     assert out.dtype == torch.float32 and tuple(out.shape) == (
-        ids.shape[0], D)
+        ids.shape[0], table.shape[1])
     return out.numpy()
 
 
@@ -56,6 +56,18 @@ def test_matches_pallas_and_jnp(combiner, b, k):
                  fused_gather_pool_jnp(jt, ji, combiner)):
         np.testing.assert_allclose(got, np.asarray(want), **TOL)
     assert np.all(got[1] == 0.0)                          # fully padded
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_wide_rows_match_jnp(combiner):
+    """D = 264, wider than the 256 K3 once took (the jnp path is what JAX
+    runs at a D the Pallas kernel's D % 128 gate refuses)."""
+    table, ids = _inputs(13, 6, seed=3, past_table=True, d=264)
+    got = _port(table, ids, combiner)
+    want = fused_gather_pool_jnp(jnp.asarray(table), jnp.asarray(ids),
+                                 combiner)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    assert np.all(np.isnan(got[2])) and np.all(got[1] == 0.0)
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean"])
@@ -106,7 +118,7 @@ def test_cpu_calls_plain_version_and_counts_no_launch():
      "combiner"),
     (torch.zeros(4, 8, dtype=torch.float64),
      torch.zeros(2, 3, dtype=torch.int32), "sum", "float32"),
-    (torch.zeros(4, 257), torch.zeros(2, 3, dtype=torch.int32), "sum",
+    (torch.zeros(4, 0), torch.zeros(2, 3, dtype=torch.int32), "sum",
      "emb dim"),
     (torch.zeros(4, 8), torch.zeros(2, 3, dtype=torch.int64), "sum",
      "int32"),

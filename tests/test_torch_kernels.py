@@ -50,8 +50,9 @@ def _port_din(beh, item, att0, mask, dtype):
 
 
 # (16, 300, 16): T not a multiple of the Pallas BLOCK_T (ragged tail) and
-# three T tiles; (8, 32, 64): the headline T and D
-SHAPES = [(16, 300, 16), (8, 32, 64)]
+# three T tiles; (8, 32, 64): the headline T and D; (4, 6, 264): wider
+# than the 256 the port's kernels once took
+SHAPES = [(16, 300, 16), (8, 32, 64), (4, 6, 264)]
 
 
 @pytest.mark.parametrize("b,t,d", SHAPES)

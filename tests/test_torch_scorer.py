@@ -322,6 +322,40 @@ def test_http_rank_direct_matches_jax(trained):
         srv.stop()
 
 
+def _reject_constant(name):
+    raise ValueError(f"the body holds a bare {name}, which is not JSON")
+
+
+@pytest.mark.parametrize("bad", [VOCAB, VOCAB + 7, -1])
+def test_http_refuses_item_ids_outside_the_table(trained, bad):
+    """An id past the table would score NaN (a bare NaN in the body) and a
+    negative one 0.0: both get 400 naming them; a good request's body parses
+    as strict JSON."""
+    r, sample = trained
+    _, ps = _scorers(r, "plain")
+    pred = SparseRankPredictor(scorer=ps,
+                               user_profiles=sample.user_profile[:50],
+                               user_behaviors=sample.behavior_ids[:50],
+                               default_ctx=sample.ctx[0])
+    srv = RecApiServer(pred, host="127.0.0.1", port=0).start(background=True)
+    url = f"http://127.0.0.1:{srv.port}/api/v1/recommend"
+    try:
+        status, out = _post(url, {"userId": 3, "itemIdList": [1, bad, 2]})
+        assert status == 400 and out["itemIdsOutsideTable"] == [bad]
+        assert str(bad) in out["error"]
+        req = urllib.request.Request(
+            url, data=json.dumps({"userId": 3, "itemIdList": [0, VOCAB - 1]}
+                                 ).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            assert resp.status == 200
+            body = json.loads(resp.read(), parse_constant=_reject_constant)
+        scores = [e["score"] for e in body["itemScoreList"]]
+        assert len(scores) == 2 and all(0.0 < x < 1.0 for x in scores)
+    finally:
+        srv.stop()
+
+
 def test_http_without_rank_direct_is_501():
     srv = RecApiServer(object(), host="127.0.0.1", port=0).start(
         background=True)

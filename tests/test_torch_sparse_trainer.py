@@ -211,6 +211,36 @@ def test_apply_matches_jax(jmesh, dtype, pooling, layout):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-2)
 
 
+@pytest.mark.parametrize("pooling", ["din_attention", "mean"])
+def test_wide_rows_train_and_predict_match_jax(jmesh, pooling):
+    """emb_dim 264, wider than the 256 the port's pools once refused:
+    SparseCTR.apply's logits (f32, the weights carried across), one epoch
+    of the dense path from JAX's start and predict of the trained ranker,
+    held to JAX with the tolerances above."""
+    mc, arrays = _mc(d=264, pooling=pooling), _arrays(n=1100)
+    j0, p0 = _jax_start(jmesh, mc, arrays)
+    a = _arrays(n=24, seed=4)
+    a["behavior_ids"][1] = -1
+    want = JaxSparseCTR(**mc).apply(
+        j0.params, JaxBatch(**{k: jnp.asarray(v) for k, v in a.items()}),
+        jmesh)
+    with torch.no_grad():
+        got = p0.model.apply(p0.table, SparseBatch(
+            **{k: torch.from_numpy(v) for k, v in a.items()}), PMESH)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=1e-6)
+    jcfg, pcfg = _cfgs(1)
+    jr = jax_train(JaxSparseCTR(**mc), JaxSample(**arrays), jmesh, jcfg,
+                   resume_from=j0)
+    pr = train_sparse(SparseCTR(**mc, device="cpu"), SparseSample(**arrays),
+                      PMESH, pcfg, resume_from=p0)
+    _assert_same(pr, jr)
+    test = _arrays(n=50, seed=5)
+    np.testing.assert_allclose(
+        pr.predict(SparseSample(**test), batch_size=32),
+        jr.predict(JaxSample(**test), batch_size=32), rtol=2e-5, atol=1e-6)
+
+
 # ------------------------------------------------------------ training --
 @pytest.mark.parametrize("pooling", ["mean", "din_attention"])
 def test_dense_path_matches_jax(jmesh, pooling):

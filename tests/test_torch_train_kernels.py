@@ -247,7 +247,10 @@ def _jax_pool_grads(dout, beh, item, att0, mask, dtype):
         jnp.asarray(att0))
 
 
-@pytest.mark.parametrize("b,t,d", [(6, 7, 8), (5, 32, 64)])
+# (3, 5, 264): wider than the 256 the kernels once took; (3, 5000, 8):
+# longer than the 4096 K2b once took
+@pytest.mark.parametrize("b,t,d", [(6, 7, 8), (5, 32, 64), (3, 5, 264),
+                                   (3, 5000, 8)])
 def test_din_bwd_plain_matches_jax_grad_f32(b, t, d):
     dout, beh, item, att0, mask = _pool_inputs(b, t, d, seed=b)
     want = _jax_pool_grads(dout, beh, item, att0, mask, jnp.float32)
