@@ -87,10 +87,13 @@ Phases, in order; any failure raises and the script exits nonzero:
                the mesh step (K6); small f32 mesh trainers card vs CPU
                (tanh towers over 3 epochs; relu towers over one step,
                with a control).
-Phases 6 and 7 also time K1's forward gather and K2 on the first step's
-own inputs. Then it prints the card line, the `kernels` JSON line (the
-ten kernels, K2 at the serving and at the headline training shape) and,
-last, {"ok": true, "device": {...}}.
+Phases 6 and 7 also time K1 (its forward gather and the split update's
+read, each with its own bound and main-path launch count) and K2 on the
+first step's own inputs. Then it prints the card line, the `kernels`
+JSON line (the ten kernels; K1 at the serving shape, at the headline and
+grouped forward gathers and at the row-update read; K2 at the serving
+and at the headline training shape) and, last,
+{"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
 """
@@ -483,23 +486,33 @@ def kernel_name(key: str) -> str:
 
 
 def device_ms(torch, fn, n_inputs, iters=24, by_kernel=None) -> float:
-    """Device time of one call of fn(i): every kernel and copy that
-    `iters` calls (cycling over n_inputs input sets) ran, summed by
-    torch.profiler, over iters. Host launch gaps are not counted. A list
-    given as `by_kernel` receives (ms per call, name) of each kernel."""
+    """Device time of one call of fn(i), from every kernel and copy that
+    `iters` calls (cycling over n_inputs input sets) ran, by
+    torch.profiler. Host launch gaps are not counted. A list given as
+    `by_kernel` receives (ms per call, name) of each kernel.
+    The profiler loses events: on an H100 most profiles miss one launch
+    of 24, and one lost a third of them. Every call runs the same
+    kernels, so each kernel's time per call is its mean time a launch
+    times its launches a call (its count over iters, rounded); a profile
+    that recorded nothing is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(n_inputs):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_inputs)
-        torch.cuda.synchronize()
-    rows = _device_events(prof)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_inputs)
+            torch.cuda.synchronize()
+        rows = _device_events(prof)
+        if rows:
+            break
+    per_call = [(us / count * max(1, round(count / iters)) / 1e3, key)
+                for us, count, key in rows]
     if by_kernel is not None:
-        by_kernel.extend((us / iters / 1e3, key) for us, _, key in rows)
-    return sum(r[0] for r in rows) / iters / 1e3
+        by_kernel.extend(per_call)
+    return sum(ms for ms, _ in per_call)
 
 
 def profile_batch(torch, scorer, reqs):
@@ -1180,11 +1193,24 @@ def time_sorted_kernels(torch, step):
     return out
 
 
+def row_sector_bytes(torch, ids, group, dim, stride) -> int:
+    """Bytes of the 32-byte sectors that the distinct rows of `ids` span
+    in a table of `stride` f32 lanes a line: row r is dim floats from
+    float (r // group)·stride + (r % group)·(dim + 1). A grouped row of 17
+    floats at D = 16 spans 2 or 3 sectors, not 64 bytes."""
+    u = torch.unique(ids).long()
+    start = (u // group) * stride + (u % group) * (dim + 1)
+    first = start * 4 // 32
+    last = ((start + dim) * 4 - 1) // 32
+    return int((last - first + 1).sum()) * 32
+
+
 def time_train_kernels(torch, step):
-    """Device ms of K1's forward gather, K2, K2b, K9, K4 and K5 or K6 and
-    their plain versions (K1's and K4's library calls; the split update
-    beside the one-pass one) on the first step's inputs, with their
-    bounds. The timed updates run on the step's own copy of the table."""
+    """Device ms of K1 (the forward gather and the split update's read),
+    K2, K2b, K9, K4 and K5 or K6 and their plain versions (K1's and K4's
+    library calls; the split update beside the one-pass one) on the first
+    step's inputs, with their bounds. The timed updates run on the step's
+    own copy of the table."""
     from goctr_tpu_torch.ops.kernels import compact as k9
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.kernels import row_gather as k1
@@ -1194,8 +1220,8 @@ def time_train_kernels(torch, step):
     pool = step["pool"]
     B, T, _ = pool[1].shape
     out = {}
-    # K1, the forward gather: ids and bf16 rows once each, and each
-    # distinct id's D f32 weights once; index_select gathers whole lines
+    # K1, the forward gather: ids and bf16 rows once each, and the 32-byte
+    # sectors of each distinct row once; index_select gathers whole lines
     ids = step["gather_ids"]
     table = step["table"]
     lines = ids // G if G > 1 else ids
@@ -1207,7 +1233,22 @@ def time_train_kernels(torch, step):
             iters=6),
         library_ms=device_ms(torch, lambda i: torch.index_select(
             table, 0, lines), 1),
-        bytes=ids.numel() * (4 + D * 2) + torch.unique(ids).numel() * D * 4,
+        bytes=ids.numel() * (4 + D * 2) + row_sector_bytes(
+            torch, ids, G, D, table.shape[1]),
+        flops=0)
+    # K1, the split update's read of all 128 f32 lanes of its targets (as
+    # updated_lines reads them), the same function as index_select
+    n_lines = table.shape[0]
+    read_ids = step["tgt"].clamp(max=n_lines - 1)
+    out["K1 read"] = dict(
+        ms=device_ms(torch, lambda i: k1.gather_rows(
+            table, read_ids, dim=k4.LANES), 1),
+        plain_ms=device_ms(torch, lambda i: k1.gather_rows_plain(
+            table, read_ids, dim=k4.LANES), 1, iters=6),
+        library_ms=device_ms(torch, lambda i: torch.index_select(
+            table, 0, read_ids), 1),
+        bytes=read_ids.numel() * (4 + k4.LANES * 4) + row_sector_bytes(
+            torch, read_ids, 1, k4.LANES, table.shape[1]),
         flops=0)
     # K2 on the pooled rows' inputs: behaviors read once, item, mask, att0
     # and the output once
@@ -1268,9 +1309,10 @@ def time_train_kernels(torch, step):
                             r["flops"] / F32_FLOPS_PER_S) * 1e3
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / F32_FLOPS_PER_S else "operations")
+        lib_name = {"K1": "index_select (lines)",
+                    "K1 read": "index_select"}.get(key, "index_copy_")
         lib = ("" if r["library_ms"] is None else
-               f", {'index_select (lines)' if key == 'K1' else 'index_copy_'}"
-               f" {r['library_ms']:.5f}")
+               f", {lib_name} {r['library_ms']:.5f}")
         split_ = ("" if "split_ms" not in r else
                   f", split update (K1 read + torch + K4) "
                   f"{r['split_ms']:.5f}")
@@ -1591,7 +1633,7 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
     import dataclasses
 
     from goctr_tpu_torch.models.trainer import TrainerConfig
-    from goctr_tpu_torch.ops.kernels.row_optimizer import group_size
+    from goctr_tpu_torch.ops.kernels.row_optimizer import LANES, group_size
     from goctr_tpu_torch.parallel.scanned import (
         TableOptConfig, TrainedScanned, table_pad_rows, train_sparse_scanned)
     from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
@@ -1647,6 +1689,8 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
     counted = counted_kernels()
     for f in counted.values():
         f.launches = 0
+    by_dim = counted["gather_rows"].launches_by_dim
+    by_dim.clear()
     torch.cuda.reset_peak_memory_stats()
 
     def run(**change):
@@ -1674,6 +1718,11 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
         others[what] = (r.loss_curve[0], r.epoch_times[0])
         del r
     launches = {k: f.launches for k, f in counted.items()}
+    # K1's two call sites: the forward gather (D lanes), the split update's
+    # read (128)
+    launches["gather_rows forward"] = by_dim.get(D, 0)
+    launches["gather_rows read"] = by_dim.get(LANES, 0)
+    path += ["gather_rows forward", "gather_rows read"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     require(all(launches[k] > 0 for k in path),
             f"{tag}: a kernel of the path was never launched {launches}")
@@ -2502,6 +2551,15 @@ def main() -> int:
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
     for key, name, src, replaces, times, counts, count_name in (
+            ("K1", "row_gather (training forward)", "row_gather.cu",
+             "goctr_tpu/ops/pallas/row_gather.py:74", t6, l6,
+             "gather_rows forward"),
+            ("K1", "row_gather (grouped training forward)", "row_gather.cu",
+             "goctr_tpu/ops/pallas/row_gather.py:74", t7, l7,
+             "gather_rows forward"),
+            ("K1 read", "row_gather (row-update read)", "row_gather.cu",
+             "goctr_tpu/ops/pallas/row_gather.py:74", t6, l6,
+             "gather_rows read"),
             ("K2", "din_attention (training)", "din_attention.cu",
              "goctr_tpu/ops/pallas/din_attention.py:97", t6, l6,
              "din_attention_pool"),
@@ -2527,7 +2585,7 @@ def main() -> int:
              "goctr_tpu/ops/pallas/run_optimizer.py:242", t6, l6,
              "apply_run_updates")):
         r = times[key]
-        err_key = "K2b d_behaviors" if key == "K2b" else key
+        err_key = {"K2b": "K2b d_behaviors", "K1 read": "K1"}.get(key, key)
         train_entries.append({
             "name": name, "route": "cuda",
             "source": f"goctr_tpu_torch/csrc/{src}", "replaces": replaces,

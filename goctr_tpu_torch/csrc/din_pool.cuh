@@ -16,7 +16,8 @@
 //
 // The ring. Each warp streams its rows through kStages stages of shared
 // memory with Hopper's 1-D bulk copy (cp.async.bulk ... mbarrier::
-// complete_tx), issued by lane 0 and completed on one mbarrier a stage;
+// complete_tx, bulk_copy.cuh), issued by lane 0 and completed on one
+// mbarrier a stage;
 // while one stage is reduced the next kStages - 1 are in flight (4 KB a
 // warp at two stages of 4 KB, 8 KB while a warp waits; 16 warps an SM;
 // two stages measured a few per cent faster than three). A stage is a
@@ -50,7 +51,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace din_pool {
+
+using namespace bulk_copy;
 
 constexpr int kWarps = 4;           // warps a block
 constexpr int kBlocksPerSM = 4;     // persistent blocks an SM
@@ -314,52 +319,6 @@ __device__ __forceinline__ RowGrad<A> row_grad(A dot, A bb, A gb, float m,
 }
 
 // ---------------------------------------------------------------- ring --
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Lane 0: the stage's barrier expects `bytes`, and the bulk copy of
-// `bytes` (a multiple of 16, both addresses 16-B aligned) from global
-// memory completes them.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  // order this warp's earlier reads of the stage before the async write
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Wait for the phase of `parity` to complete. A copy that never lands
-// traps after ~2^34 clock ticks (seconds) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
 // All lanes: prefetch the 128-byte lines of [p, p + bytes) into L1, so
 // that a unit's small reads (mask, item and dout rows) are there when the
 // unit before it is done.

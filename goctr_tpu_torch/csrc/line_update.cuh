@@ -15,13 +15,14 @@
 // compute them; ‖g‖² adds the d squares in another order (each thread's
 // four, then a shuffle tree), so the accumulator may differ by an ulp.
 //
-// A warp updates one line at a time: thread l holds lanes 4l … 4l+3 of the
-// line as one float4 and dims 4l … 4l+3 of g (zero past d); threads whose
-// four lanes all lie past lane d load and store nothing. Up to kBatch
-// lines' loads are issued before any is computed (a Batch), so several
-// loads are in flight a warp. The ids of a batch are distinct lines below
-// the table's rows, and no other warp touches them: no atomics. Line
-// offsets are 64-bit.
+// A warp updates one line at a time (update_line): thread l holds lanes
+// 4l … 4l+3 of the line as one float4 and dims 4l … 4l+3 of g (zero past
+// d); threads whose four lanes all lie past lane d load and store
+// nothing. Its caller issues several lines' loads (load_line) before it
+// updates the first: K7 and K8's heads up to kBatch lines at a time (a
+// Batch), K8's tile pass its own lines in flight. The lines a warp
+// updates are distinct lines below the table's rows, and no other warp
+// touches them: no atomics. Line offsets are 64-bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,17 +63,57 @@ __device__ __forceinline__ bool live(int d, int lane) {
   return 4 * lane < d + 1;
 }
 
+// This thread's four lanes of line id (zeros where not live).
+__device__ __forceinline__ float4 load_line(const float* table, int id, int d,
+                                            int lane) {
+  return live(d, lane) ? reinterpret_cast<const float4*>(
+                             table + static_cast<long long>(id) * kLanes)[lane]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 // This thread's four lanes of the batch's lines (zeros where not live).
 __device__ __forceinline__ void load_lines(const float* table, const Batch& b,
                                            int d, int lane,
                                            float4 t[kBatch]) {
 #pragma unroll
-  for (int i = 0; i < kBatch; ++i) {
-    t[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < b.count && live(d, lane))
-      t[i] = reinterpret_cast<const float4*>(
-          table + static_cast<long long>(b.id[i]) * kLanes)[lane];
+  for (int i = 0; i < kBatch; ++i)
+    t[i] = i < b.count ? load_line(table, b.id[i], d, lane)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Update and store line `id` from this thread's loaded lanes t and dims g
+// of its run sum. Every thread of the warp calls it (it shuffles).
+template <bool kAdagrad>
+__device__ __forceinline__ void update_line(float* table, int id,
+                                            const float4& t, const float g[4],
+                                            int d, float lr, float eps,
+                                            int lane) {
+  float out[4];
+  if (kAdagrad) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s = __fadd_rn(s, __fmul_rn(g[k], g[k]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+    const float a = __fadd_rn(__shfl_sync(kFull, comp(t, d & 3), d >> 2), s);
+    const float scale = __fmul_rn(lr, rsqrtf(__fadd_rn(a, eps)));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * lane + k;
+      out[k] = c < d ? __fsub_rn(comp(t, k), __fmul_rn(scale, g[k]))
+                     : c == d ? a : comp(t, k);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * lane + k;
+      out[k] = c < d ? __fsub_rn(comp(t, k), __fmul_rn(lr, g[k]))
+                     : comp(t, k);
+    }
   }
+  if (live(d, lane))
+    reinterpret_cast<float4*>(table + static_cast<long long>(id) * kLanes)[lane] =
+        make_float4(out[0], out[1], out[2], out[3]);
 }
 
 // Update and store the batch's lines from their loaded lanes t; empties
@@ -84,33 +125,7 @@ __device__ __forceinline__ void update_lines(float* table, Batch& b,
 #pragma unroll
   for (int i = 0; i < kBatch; ++i) {
     if (i >= b.count) break;
-    float out[4];
-    if (kAdagrad) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) s = __fadd_rn(s, __fmul_rn(b.g[i][k], b.g[i][k]));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
-      const float a = __fadd_rn(__shfl_sync(kFull, comp(t[i], d & 3), d >> 2), s);
-      const float scale = __fmul_rn(lr, rsqrtf(__fadd_rn(a, eps)));
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c = 4 * lane + k;
-        out[k] = c < d ? __fsub_rn(comp(t[i], k), __fmul_rn(scale, b.g[i][k]))
-                       : c == d ? a : comp(t[i], k);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c = 4 * lane + k;
-        out[k] = c < d ? __fsub_rn(comp(t[i], k), __fmul_rn(lr, b.g[i][k]))
-                       : comp(t[i], k);
-      }
-    }
-    if (live(d, lane))
-      reinterpret_cast<float4*>(table + static_cast<long long>(b.id[i]) *
-                                            kLanes)[lane] =
-          make_float4(out[0], out[1], out[2], out[3]);
+    update_line<kAdagrad>(table, b.id[i], t[i], b.g[i], d, lr, eps, lane);
   }
   b.count = 0;
 }

@@ -7,7 +7,9 @@ csrc/row_gather.cu; `gather_rows_plain` is its plain PyTorch version.
 `gather_rows` launches the kernel for a CUDA table and calls the plain
 version for a CPU table; on any other device, or when the kernel cannot be
 built or launched, it raises. `gather_rows.launches` counts kernel
-launches (plain calls do not count).
+launches (plain calls do not count), and `gather_rows.launches_by_dim`
+counts them by row width, which tells the call sites of one path apart
+(a trainer's forward gather at D, its row update's read at 128).
 
 Layout parameters: `group` rows per line (1 for plain and packed, G for
 grouped lines) and `dim` weight lanes per row (default: the table's width
@@ -97,7 +99,10 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, *, group: int = 1,
     _build.check(lib, _NAME, code)
     with _count_lock:
         gather_rows.launches += 1
+        by_dim = gather_rows.launches_by_dim
+        by_dim[dim] = by_dim.get(dim, 0) + 1
     return out.reshape(*ids.shape, dim)
 
 
 gather_rows.launches = 0
+gather_rows.launches_by_dim = {}

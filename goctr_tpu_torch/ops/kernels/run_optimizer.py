@@ -12,8 +12,9 @@ one row-wise adagrad or sgd update:
 
 The CUDA kernel is csrc/run_rmw.cu: it sums runs across 128-row tiles
 with a segmented carry scan, as K9 does, and writes only table lines and
-per-tile carries. `apply_run_updates_plain` is its plain PyTorch version,
-the JAX fallback's arithmetic: run sums as differences of cumsum rows
+per-tile carries; its tile pass streams the rows through a ring of bulk
+copies. `apply_run_updates_plain` is its plain PyTorch version, the JAX
+fallback's arithmetic: run sums as differences of cumsum rows
 (`sorted_run_sums`), then `apply_run_sums`. The JAX kernel sums each run
 in position order, the CUDA kernel in tile order and the plain version
 by cumsum differences, so the three agree to f32 rounding of the sums.

@@ -53,7 +53,8 @@ VARIANTS = {
         (r"for \(int p0 = 0; p0 < x\.nb; p0 \+= Q\)",
          "for (int p0 = 0; p0 < 0; p0 += Q)")],
 }
-SOURCES = ("din_pool.cuh", "din_attention.cu", "din_attention_bwd.cu")
+SOURCES = ("bulk_copy.cuh", "din_pool.cuh", "din_attention.cu",
+           "din_attention_bwd.cu")
 FWD = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2 \
     + [ctypes.c_void_p, ctypes.c_int]
 BWD = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 2 \

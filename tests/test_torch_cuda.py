@@ -20,10 +20,13 @@ its run sums add the same f32 rows in another order, so each lies within
 the plain version does; only rsqrtf may differ from torch.rsqrt — rtol
 1e-6, atol 1e-7, and untouched lines bit exact. K7 and K8 take gradient
 rows on a dyadic grid (multiples of 1/16, |g| <= 1/4) and accumulators
-that are multiples of 1/64, so every run sum, cumsum and ‖Σg‖² is exact
-in f32 whatever the order of its adds: K8's sums in tile order equal the
-plain version's cumsum differences, and only rsqrtf may differ — the
-same rtol 1e-6, atol 1e-7, untouched lines bit exact. K3 sums the same
+that are multiples of 1/64, so every run sum and cumsum is exact in f32
+whatever the order of its adds: K8's sums in tile order equal the plain
+version's cumsum differences. ‖Σg‖² is exact too, except for the long
+stream's hot run (40,000 rows) at d >= 64, where its ~10^7 units of
+1/256 pass 2^24 and two orders of adds may round it an ulp apart
+(relative 6e-8). So only rsqrtf and that ulp may differ — the same rtol
+1e-6, atol 1e-7, untouched lines bit exact. K3 sums the same
 f32 rows in another order than its plain version (atol 1e-6, rtol 1e-5);
 ids past the table give NaN rows in both. Its backward is torch glue:
 held to autograd through the plain pool in f64; index_add_'s f32 atomics
@@ -84,24 +87,61 @@ def test_din_kernel_matches_plain(cuda, dtype, b, t, d):
                                rtol=rtol)
 
 
+# K1_LAYOUTS: (layout, dim, group) — plain [V, D] at widths that take
+# the aligned path (16, 64, 264) and element loads (3); packed [V, 128]
+# rows; grouped lines, whose rows start off 16 bytes (G = 7 at D = 16,
+# G = 2 at D = 48, G = 32 at D = 3); the split update's read of all 128
+# f32 lanes of a line; and a [V, 64] table whose start is not on 16 bytes
+# (element loads).
+K1_LAYOUTS = [("plain", 3, 1), ("plain", 16, 1), ("plain", 64, 1),
+              ("plain", 264, 1), ("packed", 3, 1), ("packed", 16, 1),
+              ("packed", 64, 1), ("grouped", 16, 7), ("grouped", 48, 2),
+              ("grouped", 3, 32), ("lines", 128, 1), ("unaligned", 64, 1)]
+
+
+def _gather_table(layout, dim, dev, rows=1000):
+    """(table, dim argument) of a K1 layout holding `rows` rows."""
+    gen = torch.Generator(device=dev).manual_seed(dim)
+    w = torch.randn(rows, dim, generator=gen, device=dev)
+    if layout == "plain":
+        return w, dim
+    if layout == "packed":
+        return tro.pack_table(w), dim
+    if layout == "grouped":
+        return tro.pack_table_grouped(w), dim
+    if layout == "lines":
+        return torch.randn(rows, 128, generator=gen, device=dev), None
+    flat = torch.randn(rows * dim + 1, generator=gen, device=dev)
+    return flat[1:].view(rows, dim), dim                   # 4 bytes off
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["plain", "packed", "grouped"])
-def test_gather_kernel_matches_plain(cuda, layout):
-    w = torch.randn(1000, 16, device=cuda)
-    table, group = {"plain": (w, 1),
-                    "packed": (tro.pack_table(w), 1),
-                    "grouped": (tro.pack_table_grouped(w), 7)}[layout]
-    ids = torch.randint(-3, table.shape[0] * group + 3, (4097,),
-                        dtype=torch.int32, device=cuda)
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+@pytest.mark.parametrize("layout,dim,group", K1_LAYOUTS)
+def test_gather_kernel_matches_plain(cuda, layout, dim, group, n):
+    """K1 bit-exact against its plain version in both output dtypes, with
+    n not a multiple of the rows a warp takes, ids below 0 and past the
+    end (NaN rows)."""
+    table, dim_arg = _gather_table(layout, dim, cuda)
+    rows = table.shape[0] * group
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    ids = torch.randint(0, rows, (n,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    if n > 1:
+        ids[0], ids[-1] = -3, rows
+    if n > 4:
+        ids[n // 2], ids[n // 3] = rows + 7, rows - 1
     before = k1.gather_rows.launches
     for out_dtype in (torch.float32, torch.bfloat16):
-        got = k1.gather_rows(table, ids, group=group, dim=16,
+        got = k1.gather_rows(table, ids, group=group, dim=dim_arg,
                              out_dtype=out_dtype)
-        want = k1.gather_rows_plain(table, ids, group=group, dim=16,
+        want = k1.gather_rows_plain(table, ids, group=group, dim=dim_arg,
                                     out_dtype=out_dtype)
         torch.cuda.synchronize()
+        assert got.shape == (n, dim) and got.dtype == out_dtype
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert bool(torch.isnan(got[ids < 0]).all())
     assert k1.gather_rows.launches == before + 2
 
 
@@ -351,15 +391,15 @@ def test_rmw_kernels_match_plain(cuda, d, grouped, kind, eps):
     assert torch.equal(got[v // 2:], table[v // 2:])
 
 
-def _dyadic_stream(vocab, d, dev, n=8192, n_pad=300, seed=8):
-    """A sorted stream with a hot run of 3,000 rows (id 7: it crosses many
+def _dyadic_stream(vocab, d, dev, n=8192, hot=3000, n_pad=300, seed=8):
+    """A sorted stream with a hot run of `hot` rows (id 7: it crosses many
     128-row tiles and the 1024 boundaries), many short runs, some across
     a 1024 boundary, and n_pad pads (id = vocab) last; gradient rows on a
     dyadic grid (zero for pads), a packed table whose accumulators are
     multiples of 1/64 and whose padding lanes hold a sentinel."""
     rng = np.random.default_rng(seed + d)
-    ids = np.concatenate([np.full(3000, 7),
-                          rng.integers(0, vocab, n - 3000 - n_pad)])
+    ids = np.concatenate([np.full(hot, 7),
+                          rng.integers(0, vocab, n - hot - n_pad)])
     ids = np.concatenate([np.sort(ids), np.full(n_pad, vocab)])
     g = (rng.integers(-4, 5, (n, d)) / 16).astype(np.float32)
     g[n - n_pad:] = 0.0
@@ -372,18 +412,26 @@ def _dyadic_stream(vocab, d, dev, n=8192, n_pad=300, seed=8):
             torch.from_numpy(g).to(dev))
 
 
+# (n, hot run): the short stream; a long one (n = 49·1024: its last carry
+# group of 128 tiles is partial) whose hot run of 40,000 rows crosses
+# three carry groups
+SORTED_STREAMS = [(8192, 3000), (50176, 40000)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("eps", [1e-8, 0.0])
 @pytest.mark.parametrize("kind", ["adagrad", "sgd"])
 @pytest.mark.parametrize("d", [8, 16, 64, 127])
 @pytest.mark.parametrize("which", ["K7", "K8"])
-def test_sorted_stream_kernels_match_plain(cuda, which, d, kind, eps):
+@pytest.mark.parametrize("n,hot", SORTED_STREAMS)
+def test_sorted_stream_kernels_match_plain(cuda, which, d, kind, eps, n,
+                                           hot):
     """K7 (on the stream's cumsum rows) and K8 (on its rows) against
     their plain versions, with skip_ge = V and with skip_ge = V // 2 (ids
     in [skip_ge, V) are skipped too); see the module docstring for the
     tolerance."""
     vocab = 3000
-    table, s_ids, g = _dyadic_stream(vocab, d, cuda)
+    table, s_ids, g = _dyadic_stream(vocab, d, cuda, n=n, hot=hot)
     if which == "K7":
         wrapper, plain = tro.apply_csum_updates, tro.apply_csum_updates_plain
         rows = _cumsum_rows(g)
