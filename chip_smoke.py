@@ -1270,9 +1270,10 @@ def time_train_kernels(torch, step):
         library_ms=None, bytes=b2, flops=f2)
     s_ids, g_s, capr = step["s_ids"], step["g_s"], step["capr"]
     n = s_ids.numel()
+    k9_parts = []
     out["K9"] = dict(
         ms=device_ms(torch, lambda i: k9.compact_runsums_block(
-            s_ids, g_s, V, capr), 1),
+            s_ids, g_s, V, capr), 1, by_kernel=k9_parts),
         plain_ms=device_ms(torch, lambda i: k9.compact_runsums_plain(
             s_ids, g_s, V, capr), 1, iters=6),
         library_ms=None, bytes=n * 4 + n * D * 4 + capr * (512 + 4) + 4,
@@ -1320,6 +1321,9 @@ def time_train_kernels(torch, step):
             f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}{lib}{split_}, bound "
             f"{r['bound_ms']:.5f} ({r['bytes']} B, {r['flops']} flop, "
             f"{r['bound_by']})")
+    log(f"[train-kernels] K9 by kernel (D={D}), device ms per call: "
+        + ", ".join(f"{kernel_name(key)} {ms:.5f}" for ms, key in k9_parts)
+        + f"; {len(k9_parts)} device operations")
     return out
 
 

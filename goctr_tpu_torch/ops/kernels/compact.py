@@ -32,12 +32,11 @@ from goctr_tpu_torch.ops.kernels import _build
 
 LANES = 128
 TILE_ROWS = 128       # csrc/compact_runsums.cu kTileRows
-GROUP_TILES = 128     # csrc/compact_runsums.cu kGroupTiles
 _NAME = "compact_runsums"
-# (ids, g, n, dim, vocab, capr, tgt, rows, overflow, ints, floats, stream)
+# (ids, g, n, dim, vocab, capr, tgt, rows, overflow, scratch, stream)
 _ARGTYPES = {"compact_runsums": [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
              + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-             + [ctypes.c_void_p] * 6}
+             + [ctypes.c_void_p] * 5}
 _count_lock = threading.Lock()
 
 
@@ -59,6 +58,14 @@ def _check(s_ids: torch.Tensor, g: torch.Tensor, vocab: int,
     if capr < 1 or not 0 <= vocab < 2 ** 31 - 1 - capr:
         raise ValueError(f"capr={capr} must be >= 1 and vocab + 1 + capr "
                          "must fit int32")
+
+
+def scratch_words(n: int, d: int) -> int:
+    """8-byte words of the kernel's scratch (the kernel sets them): a word
+    a tile and the ticket, rounded up to an even count, then each tile's
+    tail of 4·ceil(D / 4) floats."""
+    n_tiles = -(-n // TILE_ROWS)
+    return (n_tiles + 2) // 2 * 2 + n_tiles * 2 * -(-d // 4)
 
 
 def compact_runsums_plain(s_ids: torch.Tensor, g_sorted: torch.Tensor,
@@ -103,17 +110,13 @@ def compact_runsums_block(s_ids: torch.Tensor, g_sorted: torch.Tensor,
     tgt = torch.empty(capr, dtype=torch.int32, device=dev)
     rows = torch.empty((capr, LANES), dtype=torch.float32, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
-    n_tiles = -(-n // TILE_ROWS)
-    n_groups = -(-n_tiles // GROUP_TILES)
-    ints = torch.empty(4 * n_tiles + n_groups + 1, dtype=torch.int32,
-                       device=dev)
-    floats = torch.empty((n_tiles + 2 * n_groups) * d, dtype=torch.float32,
-                         device=dev)
+    scratch = torch.empty(scratch_words(n, d), dtype=torch.int64,
+                          device=dev)
     lib = _build.load(_NAME, _ARGTYPES)
     code = lib.compact_runsums(
         s_ids.data_ptr(), g_sorted.data_ptr(), n, d, vocab, capr,
         tgt.data_ptr(), rows.data_ptr(), overflow.data_ptr(),
-        ints.data_ptr(), floats.data_ptr(),
+        scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, _NAME, code)
     with _count_lock:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the row gather (K1, csrc/row_gather.cu) and the sorted-run row
-update (K8, csrc/run_rmw.cu) against variants of their design, on one
-NVIDIA card, at the main paths' shapes:
+"""Time the row gather (K1, csrc/row_gather.cu), the sorted-run row
+update (K8, csrc/run_rmw.cu) and the run-sum compaction (K9,
+csrc/compact_runsums.cu) against variants of their design, on one NVIDIA
+card, at the main paths' shapes:
 
-    python3 scripts/gather_run_sweep.py [--parent DIR]
+    python3 scripts/gather_run_sweep.py [--parent DIR] [--kernels K1,K8,K9]
 
 Each variant is the committed source with one change, built into its own
 library under goctr_tpu_torch/_build/sweep/ (git-ignored); all are built
@@ -28,6 +29,30 @@ K8's variants:
                       what the tile pass's parts cost: without the
                       lines' loads, without any line update, and without
                       the row sums too (wrong outputs, not checked).
+K9's variants:
+  committed           as in the tree;
+  profiled            the committed source with its clock64 phase timers
+                      on (kProfile: the warps' cycles by phase);
+  registers           the rows as float4 loads into registers, kLoads
+                      steps in flight a lane (committed: a ring of bulk
+                      copies into shared memory);
+  3 / 4 stages        kStages ring stages a warp (committed: 2);
+  256-row tiles       kTileRows 256 (committed: 128);
+  6 blocks            __launch_bounds__ asks for 6 blocks of 4 warps an
+                      SM (at most 80 registers; committed: 8, 64);
+  fill launch         the junk slots filled by a second launch (committed:
+                      by the pass's own warps after the last tile);
+  look-back 4         four windows of 32 tile words a round trip in the
+                      look-back (committed: kLookBack 1);
+  4 tails             kTailsInFlight tails a lane loads at once while it
+                      sums a carry (committed: 8);
+  no carries, no row writes, no look-back
+                      what the parts cost: without the carries' waits and
+                      sums, without the row writes, without the look-back
+                      (slots 30 a tile; wrong outputs, not checked).
+Beside them, yardsticks of the card's memory on the same tensors (PyTorch
+calls, not used by the port): a read of g (sum), a write of the output
+rows (zero_) and a copy of g.
 --parent DIR adds the sources of another checkout of the repository (the
 commit before a change, unpacked with `git archive`) as "parent", timed
 first and last (parent, committed, variants, committed, parent), so that
@@ -44,10 +69,16 @@ rows (adagrad, lr 2.0). Every K1 variant is held bit-exact to the plain
 version; every K8 variant's lines after one call are held to those of
 the first one timed bit for bit (they sum in the same order; the parent
 too, where its K8 sums in that order), and its distance from K8's plain
-version is printed.
+version is printed. K9 compacts the headline's ids, sorted, with N(0, 1)
+gradient rows at D = 64 (capr 596,992) and D = 16 (capr 768,000, the
+grouped path's); every K9 variant (the parent too) is held to the plain
+version as chip_smoke.py holds it (targets and overflow equal, run sums
+within RUNSUM_RTOL·Σ|g|, lanes past D zero) and to itself bit for bit on
+a repeat.
 Prints one JSON line a variant: ms per call (CUDA events over 40 calls
-after 5; for K8 also the device time of its kernels, torch.profiler over
-24 calls); then the card's name and power limit.
+after 5; for K8 and K9 also the device time of their kernels and device
+operations, torch.profiler over 24 calls); then the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -67,6 +98,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from goctr_tpu_torch.ops.kernels import _build  # noqa: E402
+from goctr_tpu_torch.ops.kernels import compact as k9  # noqa: E402
 from goctr_tpu_torch.ops.kernels import row_gather as k1  # noqa: E402
 from goctr_tpu_torch.ops.kernels import row_optimizer as ro  # noqa: E402
 from goctr_tpu_torch.ops.kernels import run_optimizer as k8  # noqa: E402
@@ -147,10 +179,46 @@ K8_VARIANTS = {
                     (r"if \(\(in >> r\) & 1u\) load_dims", "if (0) load_dims")],
 }
 
-UNCHECKED = {"no line loads", "no line updates", "copies only"}
+# phases of the timed build (csrc/compact_runsums.cu enum Phase)
+K9_PHASES = ("begin (ticket, ids, first rows)", "look-back", "row walk",
+             "tail", "carry wait", "carry sum", "fill")
+K9_VARIANTS = {
+    "committed": [],
+    "profiled": [(r"constexpr bool kProfile = false;",
+                  "constexpr bool kProfile = true;")],
+    "registers": [(r"constexpr bool kUseRing = true;",
+                   "constexpr bool kUseRing = false;")],
+    "3 stages": [(r"constexpr int kStages = \d+;",
+                  "constexpr int kStages = 3;")],
+    "4 stages": [(r"constexpr int kStages = \d+;",
+                  "constexpr int kStages = 4;")],
+    "256-row tiles": [(r"constexpr int kTileRows = \d+;",
+                       "constexpr int kTileRows = 256;")],
+    "6 blocks": [(r"constexpr int kMinBlocks = \d+;",
+                  "constexpr int kMinBlocks = 6;")],
+    "fill launch": [(r"constexpr bool kFillInPass = true;",
+                     "constexpr bool kFillInPass = false;")],
+    "look-back 4": [(r"constexpr int kLookBack = \d+;",
+                     "constexpr int kLookBack = 4;")],
+    "4 tails": [(r"constexpr int kTailsInFlight = \d+;",
+                 "constexpr int kTailsInFlight = 4;")],
+    # what the parts cost (wrong outputs, not checked): no carries (no
+    # wait for tails), no row writes but the carried ones
+    "no carries": [(r"  if \(w.held_slot >= 0\) \{\n",
+                    "  if (false) {\n")],
+    "no row writes": [(r"\} else if \(slot < a.capr\) \{\n",
+                       "} else if (false) {\n")],
+    "no look-back": [(r"const long long first = look_back\(a, t, lane\);",
+                      "const long long first = t * 30;")],
+}
+
+UNCHECKED = {"no line loads", "no line updates", "copies only",
+             "no carries", "no row writes", "no look-back"}
 HEADERS = ("bulk_copy.cuh", "line_update.cuh")
 K1_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 \
     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+K9_ARGS = k9._ARGTYPES["compact_runsums"]
+K9_CAPR = {64: 596_992, 16: 768_000}
 K8_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_int] \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
@@ -176,12 +244,16 @@ def sources(csrc: Path, name: str, subs, out: Path) -> Path:
     return out / f"{name}.cu"
 
 
-def build_all(parent: Path | None) -> dict[tuple[str, str], Path]:
+SOURCES = {"K1": ("row_gather", K1_VARIANTS), "K8": ("run_rmw", K8_VARIANTS),
+           "K9": ("compact_runsums", K9_VARIANTS)}
+
+
+def build_all(parent: Path | None,
+              kernels: list[str]) -> dict[tuple[str, str], Path]:
     """Every variant's library, built in parallel: {(kernel, variant)}."""
     jobs = {}
     base = _build.BUILD_DIR / "sweep"
-    for name, variants in (("row_gather", K1_VARIANTS),
-                           ("run_rmw", K8_VARIANTS)):
+    for name, variants in (SOURCES[k] for k in kernels):
         for variant, subs in variants.items():
             out = base / re.sub(r"\W+", "_", f"{name}_{variant}")
             jobs[name, variant] = sources(_build.CSRC, name, subs, out)
@@ -232,12 +304,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout's root, timed as 'parent'")
+    ap.add_argument("--kernels", default="K1,K8,K9",
+                    help="which kernels to time, of K1, K8, K9")
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(SOURCES):
+        ap.error(f"--kernels takes {', '.join(SOURCES)}")
     if not torch.cuda.is_available():
         print("gather_run_sweep: needs an NVIDIA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    libs = build_all(args.parent)
+    libs = build_all(args.parent, kernels)
     stream = torch.cuda.current_stream(dev).cuda_stream
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
@@ -349,17 +426,127 @@ def main() -> int:
         del table
         return row
 
-    order = ["committed", *[v for v in K1_VARIANTS if v != "committed"],
-             "committed"]
-    k8_order = ["committed", *[v for v in K8_VARIANTS if v != "committed"],
-                "committed"]
-    if args.parent is not None:
-        order = ["parent", *order, "parent"]
-        k8_order = ["parent", *k8_order, "parent"]
-    for variant in order:
-        print(json.dumps(k1_row(variant)), flush=True)
-    for variant in k8_order:
-        print(json.dumps(k8_row(variant)), flush=True)
+    k9_inputs = {}
+    for d in K9_CAPR if "K9" in kernels else ():
+        g_d = torch.randn(n, d, generator=gen, device=dev)
+        want = k9.compact_runsums_plain(s_ids, g_d, V, K9_CAPR[d])
+        abs_rows = k9.compact_runsums_plain(s_ids, g_d.abs(), V,
+                                            K9_CAPR[d])[1]
+        k9_inputs[d] = (g_d, want, chip_smoke.RUNSUM_RTOL * abs_rows[:, :d])
+        del abs_rows
+    k9_reps = {}
+
+    def k9_row(variant):
+        lib = ctypes.CDLL(str(libs["compact_runsums", variant]))
+        fn = lib.compact_runsums
+        fn.restype = ctypes.c_int
+        fn.argtypes = K9_ARGS
+        row = {"kernel": "K9", "variant": variant}
+        for d, (g_d, want, lim) in k9_inputs.items():
+            capr = K9_CAPR[d]
+            n_tiles = -(-n // k9.TILE_ROWS)
+            if variant == "parent":      # the seven-launch layout's scratch
+                n_groups = -(-n_tiles // 128)
+                scratch = [torch.empty(4 * n_tiles + n_groups + 1,
+                                       dtype=torch.int32, device=dev),
+                           torch.empty((n_tiles + 2 * n_groups) * d,
+                                       device=dev)]
+            else:
+                scratch = [torch.empty(k9.scratch_words(n, d),
+                                       dtype=torch.int64, device=dev)]
+            fn.argtypes = K9_ARGS + [ctypes.c_void_p] * (len(scratch) - 1)
+            tgt = torch.empty(capr, dtype=torch.int32, device=dev)
+            rows = torch.empty(capr, 128, device=dev)
+            over = torch.empty((), dtype=torch.int32, device=dev)
+
+            def call():
+                code = fn(s_ids.data_ptr(), g_d.data_ptr(), n, d, V, capr,
+                          tgt.data_ptr(), rows.data_ptr(), over.data_ptr(),
+                          *(x.data_ptr() for x in scratch), stream)
+                if code:
+                    raise RuntimeError(f"K9 {variant}: launch failed {code}")
+
+            call()
+            torch.cuda.synchronize()
+            first = (tgt.clone(), rows.clone(), over.clone())
+            diff = (rows[:, :d] - want[1][:, :d]).abs()
+            if variant in UNCHECKED:
+                pass
+            elif not (torch.equal(tgt, want[0])
+                    and int(over) == int(want[2])):
+                raise RuntimeError(f"K9 {variant} D={d}: targets or "
+                                   f"overflow differ from plain")
+            elif not bool((diff <= lim).all()):
+                raise RuntimeError(
+                    f"K9 {variant} D={d}: {int((diff > lim).sum())} run "
+                    f"sums outside RUNSUM_RTOL·Σ|g|")
+            elif not bool((rows[:, d + 1:] == 0).all()):
+                raise RuntimeError(f"K9 {variant} D={d}: lanes past D not 0")
+            call()
+            torch.cuda.synchronize()
+            if variant not in UNCHECKED and not all(
+                    torch.equal(x, y) for x, y in
+                    zip(first, (tgt, rows, over))):
+                raise RuntimeError(f"K9 {variant} D={d}: a repeat differs")
+            if variant == "committed" and d in k9_reps and not torch.equal(
+                    rows, k9_reps[d]):
+                raise RuntimeError(f"K9 committed D={d}: differs between "
+                                   "its two runs")
+            if variant == "committed":
+                k9_reps.setdefault(d, rows.clone())
+            row[f"D={d} max err"] = float(diff.max())
+            row[f"D={d} ms"] = event_ms(call)
+            parts = []
+            row[f"D={d} device"] = chip_smoke.device_ms(
+                torch, lambda i: call(), 1, by_kernel=parts)
+            row[f"D={d} by kernel"] = {chip_smoke.kernel_name(key): ms
+                                       for ms, key in parts}
+            if variant == "profiled":
+                prof = (ctypes.c_ulonglong * (len(K9_PHASES) + 1))()
+                lib.compact_runsums_prof(prof)
+                before = list(prof)
+                call()
+                torch.cuda.synchronize()
+                lib.compact_runsums_prof(prof)
+                cyc = [b - a for a, b in zip(before, prof)]
+                warp_cycles = sum(cyc[:-1])
+                row[f"D={d} warp cycles a 128 rows"] = warp_cycles / n_tiles
+                row[f"D={d} carried tiles"] = cyc[-1]
+                row[f"D={d} shares"] = {
+                    what: cyc[i] / warp_cycles
+                    for i, what in enumerate(K9_PHASES)}
+            del first, diff, tgt, rows, scratch
+        return row
+
+    def yardsticks():
+        """Achieved bytes/s of PyTorch's own passes over K9's tensors."""
+        row = {"kernel": "K9", "variant": "yardsticks (PyTorch)"}
+        for d, (g_d, _, _) in k9_inputs.items():
+            rows = torch.empty(K9_CAPR[d], 128, device=dev)
+            copy = torch.empty_like(g_d)
+            for what, fn, nbytes in (
+                    ("read g (sum)", lambda: g_d.sum(), g_d.numel() * 4),
+                    ("write rows (zero_)", rows.zero_, rows.numel() * 4),
+                    ("copy g", lambda: copy.copy_(g_d),
+                     2 * g_d.numel() * 4)):
+                ms = event_ms(fn)
+                row[f"D={d} {what} ms"] = ms
+                row[f"D={d} {what} TB/s"] = nbytes / ms / 1e9
+            del rows, copy
+        return row
+
+    plans = {"K1": (K1_VARIANTS, k1_row), "K8": (K8_VARIANTS, k8_row),
+             "K9": (K9_VARIANTS, k9_row)}
+    if "K9" in kernels:
+        print(json.dumps(yardsticks()), flush=True)
+    for kernel in kernels:
+        variants, row_fn = plans[kernel]
+        order = ["committed", *[v for v in variants if v != "committed"],
+                 "committed"]
+        if args.parent is not None:
+            order = ["parent", *order, "parent"]
+        for variant in order:
+            print(json.dumps(row_fn(variant)), flush=True)
     print(chip_smoke.card_line(), flush=True)
     return 0
 

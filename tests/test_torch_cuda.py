@@ -287,39 +287,75 @@ def test_scatter_kernel_matches_plain(cuda):
     assert torch.equal(got, want)
 
 
-def _sorted_stream(n, vocab, n_pad, dev, seed=6):
-    """Sorted ids with a hot run across many tiles and groups (30,000
-    rows of one id), many short runs, and n_pad pads (id = vocab) last."""
+def _sorted_stream(n, vocab, n_pad, dev, dim=64, hot=30000, seed=6):
+    """Sorted ids with a hot run across many tiles (`hot` rows of one id),
+    many short runs, and n_pad pads (id = vocab) last."""
     rng = np.random.default_rng(seed)
-    ids = np.concatenate([np.full(30000, 7), rng.integers(0, vocab,
-                                                          n - 30000 - n_pad)])
+    ids = np.concatenate([np.full(hot, 7), rng.integers(0, vocab,
+                                                        n - hot - n_pad)])
     ids = np.concatenate([np.sort(ids), np.full(n_pad, vocab)])
-    g = rng.normal(0, 1, (n, 64)).astype(np.float32)
+    g = rng.normal(0, 1, (n, dim)).astype(np.float32)
     g[n - n_pad:] = 0.0
     return (torch.from_numpy(ids.astype(np.int32)).to(dev),
             torch.from_numpy(g).to(dev))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("capr", [4096, 1024])           # fits, overflows
-def test_compact_kernel_matches_plain(cuda, capr):
+def _compact_case(case, dev):
+    """(ids, g, vocab, capr) of a K9 card case."""
     vocab = 3000
-    s_ids, g = _sorted_stream(70656, vocab, 1000, cuda)
+    if case.startswith("d="):              # each lane layout: 8, 2, 1 rows
+        d = int(case[2:])                  # a step (126: element loads)
+        return (*_sorted_stream(70656, vocab, 1000, dev, dim=d), vocab, 4096)
+    if case == "n ragged":                 # n % 128 != 0, D % 4 != 0
+        return (*_sorted_stream(70001, vocab, 1000, dev, dim=37), vocab, 4096)
+    if case == "run of 70000":             # ~547 tiles of one run
+        return (*_sorted_stream(100000, vocab, 1000, dev, dim=16,
+                                hot=70000), vocab, 4096)
+    if case == "every row a run":
+        n = 5000
+        rng = np.random.default_rng(8)
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        g = torch.from_numpy(rng.normal(0, 1, (n, 64)).astype(np.float32))
+        return ids, g.to(dev), 10000, 8192
+    if case == "every id a pad":           # total 0: every slot junk
+        rng = np.random.default_rng(9)
+        ids = torch.full((4000,), vocab, dtype=torch.int32, device=dev)
+        g = torch.from_numpy(rng.normal(0, 1, (4000, 16)).astype(np.float32))
+        return ids, g.to(dev), vocab, 1024
+    if case == "overflow":                 # capr below the real runs
+        return (*_sorted_stream(70656, vocab, 1000, dev), vocab, 1024)
+    if case == "g unaligned":              # g not on 16 bytes: element loads
+        ids, g = _sorted_stream(70656, vocab, 1000, dev)
+        buf = torch.empty(g.numel() + 1, device=dev)
+        g_off = buf[1:].view(g.shape)
+        g_off.copy_(g)
+        return ids, g_off, vocab, 4096
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d=16", "d=64", "d=126", "n ragged",
+                                  "run of 70000", "every row a run",
+                                  "every id a pad", "overflow",
+                                  "g unaligned"])
+def test_compact_kernel_matches_plain(cuda, case):
+    s_ids, g, vocab, capr = _compact_case(case, cuda)
+    d = g.shape[1]
     before = k9.compact_runsums_block.launches
     tgt, rows, over = k9.compact_runsums_block(s_ids, g, vocab, capr)
     w_tgt, w_rows, w_over = k9.compact_runsums_plain(s_ids, g, vocab, capr)
     torch.cuda.synchronize()
     assert k9.compact_runsums_block.launches == before + 1
     assert torch.equal(tgt, w_tgt) and int(over) == int(w_over)
-    assert (int(over) > 0) == (capr == 1024)
+    assert (int(over) > 0) == (case == "overflow")
     _, abs_rows, _ = k9.compact_runsums_plain(s_ids, g.abs(), vocab, capr)
-    limit = 1e-5 * abs_rows[:, :64] + 1e-6
-    assert bool(((rows[:, :64] - w_rows[:, :64]).abs() <= limit).all())
-    torch.testing.assert_close(rows[:, 64], w_rows[:, 64], rtol=1e-4,
+    limit = 1e-5 * abs_rows[:, :d] + 1e-6
+    assert bool(((rows[:, :d] - w_rows[:, :d]).abs() <= limit).all())
+    torch.testing.assert_close(rows[:, d], w_rows[:, d], rtol=1e-4,
                                atol=1e-4)
-    assert bool((rows[:, 65:] == 0).all())
+    assert bool((rows[:, d + 1:] == 0).all())
     again = k9.compact_runsums_block(s_ids, g, vocab, capr)
-    assert torch.equal(again[1], rows)
+    assert all(torch.equal(x, y) for x, y in zip(again, (tgt, rows, over)))
 
 
 def _rmw_inputs(v, d, group, n, dev, seed=7):

@@ -121,24 +121,28 @@ def test_split_row_update_matches_jax(kind):
 
 
 # ------------------------------------------------------------------ K9 --
-def _sorted_stream(n, vocab, n_pad, seed, hot=0):
+def _sorted_stream(n, vocab, n_pad, seed, hot=0, dim=64):
     """Sorted ids (pads = vocab last) with an optional hot run of `hot`
     rows that spans several JAX blocks (512) and port tiles (128)."""
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, vocab, n - n_pad - hot)
     ids = np.sort(np.concatenate([ids, np.full(hot, vocab // 3)]))
     ids = np.concatenate([ids, np.full(n_pad, vocab)]).astype(np.int32)
-    g = rng.normal(0, 1, (n, 64)).astype(np.float32)
+    g = rng.normal(0, 1, (n, dim)).astype(np.float32)
     g[n - n_pad:] = 0.0
     return ids, g
 
 
-@pytest.mark.parametrize("vocab,capr,hot", [
-    (400, 1024, 1700),      # runs across blocks and tiles, cap fits
-    (5000, 2048, 0),        # more unique ids than the cap: overflow
+@pytest.mark.parametrize("vocab,capr,hot,dim", [
+    # runs across blocks and tiles, cap fits
+    pytest.param(400, 1024, 1700, 64, id="400-1024-1700"),
+    # more unique ids than the cap: overflow
+    pytest.param(5000, 2048, 0, 64, id="5000-2048-0"),
+    # the grouped 100M x 16 path's width
+    pytest.param(400, 1024, 1700, 16, id="400-1024-1700-d16"),
 ])
-def test_compact_plain_matches_jax_kernel(vocab, capr, hot):
-    ids, g = _sorted_stream(6144, vocab, 700, seed=vocab, hot=hot)
+def test_compact_plain_matches_jax_kernel(vocab, capr, hot, dim):
+    ids, g = _sorted_stream(6144, vocab, 700, seed=vocab, hot=hot, dim=dim)
     j_tgt, j_rows, j_over = jax_compact(jnp.asarray(ids), jnp.asarray(g),
                                         vocab, capr, interpret=True)
     tgt, rows, over = k9.compact_runsums_block(_t(ids), _t(g), vocab, capr)
