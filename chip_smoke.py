@@ -52,8 +52,11 @@ Phases, in order; any failure raises and the script exits nonzero:
                loss past its limit; small f32 models trained on the card
                in every update mode are held against the port on the
                CPU; a profiled step gives the device-time breakdown; the
-               trained result serves through DeviceScorer with the
-               phase-3 score check and controls.
+               trained result scores EVAL_ROWS held-out rows of the same
+               draw (eval_auc, eval_gauc and the oracle's
+               eval_auc_ceiling, as bench.py reports them) and serves
+               through DeviceScorer with the phase-3 score check and
+               controls.
   7. grouped training — the 100M × 16 configuration (G = 7 rows per
                128-lane line, 7.3 GB of lines drawn directly) trained at
                batch 65,536 on the JAX bench's 1,000,000-row workload for
@@ -67,8 +70,8 @@ Phases, in order; any failure raises and the script exits nonzero:
                (control) moves that loss past the limit; small grouped
                f32 trainers on the card (grouped lines, and the other
                update modes from lines) are held against the port on the
-               CPU; 3 profiled steps; the trained lines serve with the
-               score check and controls.
+               CPU; 3 profiled steps; held-out eval as in phase 6; the
+               trained lines serve with the score check and controls.
   8. mesh    — the mesh trainer train_sparse on the 1×1 mesh. K3 (fused
                gather + pool) against its plain version on the dense
                path's first batch (B = 65,536, T = 32, D = 64, mean and
@@ -87,12 +90,27 @@ Phases, in order; any failure raises and the script exits nonzero:
                the mesh step (K6); small f32 mesh trainers card vs CPU
                (tanh towers over 3 epochs; relu towers over one step,
                with a control).
+  9. dense   — the dense rankers at the JAX package's ML-20M protocol
+               widths (281 columns, batch 16,384, adam 1e-3, f16
+               storage, bf16 compute) on 2,097,152 planted rows: K2 and
+               K2b against their plain versions on the DIN "pallas" run's
+               first step (no mask), with controls, and timed; the DIN
+               pool at T = 512 through K2 and through the "xla" torch
+               ops; small f32 rankers card vs CPU. The main path, counts
+               reset just before and read just after: MLPTower,
+               YoutubeDNN, DIN "xla" and DIN "pallas" (K2 forward, K2b
+               backward) trained 3 epochs each by train_ranker from seed
+               0, scored on 262,144 held-out rows with predict_all (K2),
+               AUC and GAUC on the card held to numpy and above chance;
+               the two DIN impls' first-epoch losses agree, and a pool
+               that returns zeros (control) does not; a profiled step.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
 JSON line (the ten kernels; K1 at the serving shape, at the headline and
 grouped forward gathers and at the row-update read; K2 at the serving
-and at the headline training shape) and, last,
+and at the headline training shape; K2 and K2b at the dense DIN's
+shape) and, last,
 {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
@@ -197,6 +215,37 @@ MESH_LOSS_RTOL = 2e-5
 # mesh predict: held-out rows and the trainer's predict batch
 MESH_PREDICT_BATCH = 8192
 MESH_PREDICT_ROWS = 4 * MESH_PREDICT_BATCH
+# held-out rows of the SparseCTR training phases (bench.py draws 250,000)
+EVAL_ROWS = 262_144
+# phase 9, the dense rankers at the JAX package's ML-20M protocol widths
+# (scripts/parity_ml20m.py:232-243; row layout recommend/rcmd.py:232-240):
+# profile 2 + 5 genres × 10, 10 behaviors × 16, item 16, ctx the 53 raw
+# item features; rows cut from 14.4M, epochs from 30
+ML20M = dict(u_profile_dim=52, behavior_len=10, behavior_dim=16,
+             i_feature_dim=16, c_feature_dim=53)
+DENSE_BATCH = 16_384
+DENSE_ROWS = 128 * DENSE_BATCH
+DENSE_EPOCHS = 3
+# the planted rule's positive rate at tests/test_models.py's widths
+# (round(0.6·(d1 + d2)) there); at these widths the same rule would give
+# 0.8%, so the label is 1 for this share of the rows with the largest d1+d2
+DENSE_POS_RATE = 0.1175
+LABEL_FLIP = 0.15                  # bench.py's noisy workload
+# a trained dense ranker must rank the held-out rows better than chance
+# by this much (AUC; an H100 read 0.643-0.686 against a ceiling of 0.705,
+# PERF.md), and its device AUC / GAUC (float64 on the card) must equal
+# the numpy versions (float64 on the host) within METRIC_ATOL: the same
+# rank sums in another order (an H100 read <= 1.9e-15). The SparseCTR
+# phases' cut depth (48 steps, the bench's 305) learns little beyond the
+# popularity confound: their held-out AUC must only exceed 0.5 (an H100
+# read 0.513 and 0.509; the standard error at 262,144 rows is ~0.001)
+DENSE_AUC_MARGIN = 0.05
+METRIC_ATOL = 1e-9
+# DIN "pallas" (K2 forward, K2b backward: f32 inside, the pooled rows
+# rounded once to bf16) vs DIN "xla" (torch ops rounding each bf16
+# intermediate), first-epoch mean loss from the same start: an H100 read
+# 1.57e-5; the control, a pool that returns zeros, 2.93e-4 (PERF.md)
+DIN_IMPL_LOSS_RTOL = 1e-4
 
 
 def require(cond: bool, what: str) -> None:
@@ -273,6 +322,23 @@ def max_err(torch, got, want, dtype_name: str, what: str) -> float:
     require(bad == 0, f"{what}: {bad} entries outside atol={atol} "
                       f"rtol={rtol} (max err {err:.3g})")
     return err
+
+
+def pool_bounds(B, T, D):
+    """(K2 bytes, K2 flop, K2b bytes, K2b flop) of the DIN pool at [B, T,
+    D] bf16 with an f32 mask and att0: each input read once, each output
+    written once."""
+    k2b = B * T * D * 2 + 2 * B * D * 2 + B * T * 4 + T * 4
+    k2f = B * T * (6 * D + 12)
+    k2bb = 2 * B * T * D * 2 + 3 * B * D * 2 + B * T * 4 + 2 * T * 4
+    return k2b, k2f, k2bb, B * T * (13 * D + 30)
+
+
+def bound(nbytes, flops):
+    """(bound ms, what bounds it) of a call that moves `nbytes` and does
+    `flops` f32 operations."""
+    b, f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(b, f) * 1e3, "bytes" if b >= f else "operations"
 
 
 def card_line() -> str:
@@ -665,7 +731,9 @@ def make_workload(n, vocab, t, u, c, seed=0):
     Planted parity: label = item parity == the user's taste parity, which
     85% of the behaviors carry; zipf (s = 1.05) popularity with hot ranks
     scattered over the id space by a multiplicative hash; 15% of labels
-    flip and hot items lean positive."""
+    flip and hot items lean positive. Returns (sample, user ids, oracle
+    scores): the oracle is the Bayes-optimal P(label = 1), whose AUC is
+    the ceiling."""
     from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 
     rng = np.random.default_rng(seed)
@@ -690,11 +758,28 @@ def make_workload(n, vocab, t, u, c, seed=0):
     parity = ((iids % 2) == taste)
     hot = i_rank < max(half // 10, 1)
     p_pos = np.where(parity, 0.85, 0.15) + np.where(hot, 0.10, -0.01)
-    y = (rng.random(n) < p_pos.clip(0.02, 0.98)).astype(np.float32)
+    p_pos = p_pos.clip(0.02, 0.98)
+    y = (rng.random(n) < p_pos).astype(np.float32)
     return SparseSample(
         user_profile=rng.random((n, u), dtype=np.float32),
         behavior_ids=bids, item_ids=iids,
-        ctx=rng.random((n, c), dtype=np.float32), labels=y)
+        ctx=rng.random((n, c), dtype=np.float32),
+        labels=y), uids, p_pos.astype(np.float32)
+
+
+def split_workload(n, vocab, t, u, c, seed=0):
+    """bench.py's split (:163-174): n + EVAL_ROWS rows drawn as one, the
+    first n to train, the last EVAL_ROWS held out. Returns (train sample,
+    held-out sample, held-out user ids, held-out oracle scores)."""
+    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
+
+    full, uids, oracle = make_workload(n + EVAL_ROWS, vocab, t, u, c, seed)
+
+    def part(sl):
+        return SparseSample(full.user_profile[sl], full.behavior_ids[sl],
+                            full.item_ids[sl], full.ctx[sl], full.labels[sl])
+
+    return part(slice(None, n)), part(slice(n, None)), uids[n:], oracle[n:]
 
 
 def bench_compact_cap(sample, bs: int) -> int:
@@ -1253,16 +1338,13 @@ def time_train_kernels(torch, step):
     # K2 on the pooled rows' inputs: behaviors read once, item, mask, att0
     # and the output once
     _, beh, item, att0, mask = pool
+    b1, f1, b2, f2 = pool_bounds(B, T, D)
     out["K2"] = dict(
         ms=device_ms(torch, lambda i: k2.din_attention_pool(
             beh, item, att0, mask), 1),
         plain_ms=device_ms(torch, lambda i: k2.din_attention_pool_plain(
             beh, item, att0, mask), 1, iters=6),
-        library_ms=None,
-        bytes=B * T * D * 2 + 2 * B * D * 2 + B * T * 4 + T * 4,
-        flops=B * T * (6 * D + 12))
-    b2 = (2 * B * T * D * 2 + 3 * B * D * 2 + B * T * 4 + 2 * T * 4)
-    f2 = B * T * (13 * D + 30)
+        library_ms=None, bytes=b1, flops=f1)
     out["K2b"] = dict(
         ms=device_ms(torch, lambda i: k2.din_attention_pool_bwd(*pool), 1),
         plain_ms=device_ms(torch, lambda i: k2.din_attention_pool_bwd_plain(
@@ -1647,8 +1729,9 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
         model_cfg["emb_dim"]
     G = group_size(D)
     t_phase = time.perf_counter()
-    sample = make_workload(rows, V, T, model_cfg["u_profile_dim"],
-                           model_cfg["ctx_dim"], seed=SEED)
+    sample, ev_sample, ev_uids, ev_oracle = split_workload(
+        rows, V, T, model_cfg["u_profile_dim"], model_cfg["ctx_dim"],
+        seed=SEED)
     cap = bench_compact_cap(sample, TRAIN_BATCH)
     steps = -(-rows // TRAIN_BATCH)
     log(f"[{tag}] workload {rows} rows ({steps} steps of {TRAIN_BATCH}, "
@@ -1767,6 +1850,13 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
         + pair_line + f"; overflow 0; steady-state {steady:.1f} ex/s, step "
         f"{sum(r_main.epoch_times[1:]) / (steps * (TRAIN_EPOCHS - 1)) * 1e3:.3f}"
         f" ms; peak device memory {peak:.2f} GB; launches {launches}")
+    ev = eval_metrics(torch, r_main.predict(ev_sample), ev_sample.labels,
+                      ev_uids, ev_oracle, dev)
+    require(ev["eval_auc"] > 0.5, f"{tag}: eval AUC {ev['eval_auc']} at "
+                                  f"or below chance")
+    log(f"[{tag}] held-out {EVAL_ROWS} rows (bench.py:224-247): eval_auc "
+        f"{ev['eval_auc']:.6f} eval_gauc {ev['eval_gauc']:.6f} "
+        f"eval_auc_ceiling {ev['eval_auc_ceiling']:.6f}")
     for control in controls:
         ctl.update(control(torch, sample, cfg, topt, start, dev, lc[0]))
     del start
@@ -1966,8 +2056,9 @@ def check_mesh_predict(torch, ranker, counted):
     and controls (behavior ids shifted by one, no behaviors: a zeroed
     pool) through the plain path that must exceed it."""
     cfg = ranker.model
-    test = make_workload(MESH_PREDICT_ROWS, cfg.item_vocab, cfg.behavior_len,
-                         cfg.u_profile_dim, cfg.ctx_dim, seed=SEED + 5)
+    test, _, _ = make_workload(MESH_PREDICT_ROWS, cfg.item_vocab,
+                               cfg.behavior_len, cfg.u_profile_dim,
+                               cfg.ctx_dim, seed=SEED + 5)
     for f in counted.values():
         f.launches = 0
     t0 = time.perf_counter()
@@ -2256,10 +2347,10 @@ def sparse_mesh_path(torch, dev, gen, mesh, sample, counted):
         + f" (limit {MESH_LOSS_RTOL}); control, stage 4 writing each run to "
         f"the next id's line: rel diff {ctl:.3g}; launches {launches}")
     # the 100M x 16 grouped-resident lines through the mesh step (K6)
-    g_sample = make_workload(GROUPED_TRAIN_ROWS, GROUPED["item_vocab"],
-                             GROUPED["behavior_len"],
-                             GROUPED["u_profile_dim"], GROUPED["ctx_dim"],
-                             seed=SEED)
+    g_sample = split_workload(GROUPED_TRAIN_ROWS, GROUPED["item_vocab"],
+                              GROUPED["behavior_len"],
+                              GROUPED["u_profile_dim"], GROUPED["ctx_dim"],
+                              seed=SEED)[0]
     for f in counted.values():
         f.launches = 0
     r = run("kernel", sample=g_sample, model_cfg=GROUPED, resume=None)
@@ -2292,8 +2383,8 @@ def mesh_phase(torch, dev, gen):
     t_phase = time.perf_counter()
     mesh = single_device_mesh(dev)
     V, T = HEADLINE["item_vocab"], HEADLINE["behavior_len"]
-    sample = make_workload(TRAIN_ROWS, V, T, HEADLINE["u_profile_dim"],
-                           HEADLINE["ctx_dim"], seed=SEED)
+    sample = split_workload(TRAIN_ROWS, V, T, HEADLINE["u_profile_dim"],
+                            HEADLINE["ctx_dim"], seed=SEED)[0]
     mean_cfg = dict(HEADLINE, pooling="mean")
     cfg = TrainerConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
                         early_stop=0, lr=1e-3, l2=0.0, shuffle=True,
@@ -2358,6 +2449,478 @@ def mesh_phase(torch, dev, gen):
             "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"],
             "library_ms": times["library_ms"]}
+
+
+# ------------------------------------------------------------- phase 9 --
+def ml20m_info():
+    """The ML-20M protocol's SampleInfo: profile, behaviors, item, ctx."""
+    from goctr_tpu_torch.models.base import SampleInfo
+
+    u, t, d = ML20M["u_profile_dim"], ML20M["behavior_len"], \
+        ML20M["behavior_dim"]
+    it, cx = ML20M["i_feature_dim"], ML20M["c_feature_dim"]
+    ub = u + t * d
+    return SampleInfo((0, u), (u, ub), (ub, ub + it),
+                      (ub + it, ub + it + cx))
+
+
+@functools.lru_cache(maxsize=None)
+def make_dense_workload(n, n_eval, seed=0):
+    """Rows of the ML-20M protocol's layout drawn as tests/test_models.py
+    draws its planted rows, at these widths: profile, behavior 1 (the
+    second), item and ctx uniform [0, 1), the other behaviors 0; its rule:
+    d1 = mean |profile − the first 52 ctx columns|, d2 = mean |behavior 1
+    − item|;
+    the clean label is 1 for the DENSE_POS_RATE share of rows with the
+    largest d1 + d2 (the test rule's rate), and LABEL_FLIP of the labels
+    flip, as in bench.py's noisy workload. Users are zipf (s = 1.05) over
+    (n + n_eval) // 2048 ids, for GAUC. Returns (train TrainSample, eval
+    x, eval labels, eval user ids, eval oracle scores): the oracle is the
+    clean label, the Bayes-optimal score under the flips."""
+    from goctr_tpu_torch.models.base import TrainSample
+
+    info = ml20m_info()
+    rng = np.random.default_rng(seed)
+    total = n + n_eval
+    x = rng.random((total, info.width), dtype=np.float32)
+    u0, u1 = info.user_profile_range
+    c0 = info.ctx_feature_range[0]
+    b0 = info.user_behavior_range[0]
+    b1 = b0 + ML20M["behavior_dim"]
+    i0, i1 = info.item_feature_range
+    x[:, b0:b1] = 0.0
+    x[:, b1 + ML20M["behavior_dim"]:i0] = 0.0
+    d1 = x[:, u0:u1].mean(1) * x[:, c0:c0 + u1 - u0].mean(1)
+    d2 = x[:, b1:b1 + i1 - i0].mean(1) * x[:, i0:i1].mean(1)
+    s = d1 + d2
+    clean = (s > np.quantile(s, 1.0 - DENSE_POS_RATE)).astype(np.float32)
+    y = np.where(rng.random(total) < LABEL_FLIP, 1.0 - clean,
+                 clean).astype(np.float32)
+    uids = _zipf_ranks(rng, total, max(total // 2048, 1)).astype(np.int32)
+    return (TrainSample(x=x[:n], y=y[:n], info=info), x[n:], y[n:],
+            uids[n:], clean[n:])
+
+
+def dense_models(torch, **kw):
+    """(name, model, l2) of the ML-20M protocol's three rankers at its
+    widths, bf16 compute (use_bf16=True), DIN in both attention_impls;
+    `kw` overrides the model fields."""
+    from goctr_tpu_torch.models import DIN, MLPTower, YoutubeDNN
+
+    widths = tuple(ML20M.values())
+    w = ml20m_info().width
+    kw = dict(dict(compute_dtype=torch.bfloat16), **kw)
+    mlp_kw = {k: v for k, v in kw.items() if k != "dropout_rates"}
+    return [("mlp", MLPTower(in_dim=w, **mlp_kw), 1e-5),
+            ("youtube", YoutubeDNN(*widths, **kw), 1e-4),
+            ("din xla", DIN(*widths, **kw), 1e-4),
+            ("din pallas", DIN(*widths, **kw, attention_impl="pallas"),
+             1e-4)]
+
+
+def dense_cfg(l2):
+    """The ML-20M protocol's trainer settings (scripts/parity_ml20m.py
+    :232-243) with the phase's epochs and early stopping off."""
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+
+    return TrainerConfig(batch_size=DENSE_BATCH, epochs=DENSE_EPOCHS,
+                         early_stop=0, lr=1e-3, l2=l2,
+                         store_dtype="float16", seed=SEED)
+
+
+def dense_first_step(torch, model, sample, cfg, dev):
+    """The DIN "pallas" run's first step rebuilt with the trainer's own
+    functions: the first epoch's first batch (f16 storage upcast), the
+    fresh parameters, K2's inputs (behaviors and item contiguous in bf16,
+    att0 rounded to bf16, mask all ones) and K2b's: the tower's gradient
+    of the pooled rows under the first step's dropout masks."""
+    from goctr_tpu_torch.models.base import split_blocks
+    from goctr_tpu_torch.models.mlp_tower import tower
+    from goctr_tpu_torch.models.trainer import run_generators, upload_rows
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+    from goctr_tpu_torch.ops.losses import bce_loss
+
+    n, bs = sample.rows, cfg.batch_size
+    n_pad = -(-n // bs) * bs
+    shuffle_gen, drop_gen = run_generators(cfg, 0, dev)
+    idx = torch.randperm(n_pad, generator=shuffle_gen, device=dev)[:bs]
+    idx_h = idx.cpu().numpy()
+    real = idx_h < n
+    xh = np.zeros((bs, sample.x.shape[1]), np.float32)
+    xh[real] = sample.x[idx_h[real]]
+    xb = upload_rows(xh, bs, torch.float16, dev).float()
+    yh = np.zeros(bs, np.float32)
+    yh[real] = sample.y[idx_h[real]]
+    y = torch.from_numpy(yh).to(dev)
+    w = torch.from_numpy(real.astype(np.float32)).to(dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(
+        cfg.seed))
+    cd = model.compute_dtype
+    prof, beh, item, ctx = split_blocks(xb, sample.info, model.behavior_len)
+    beh = beh.to(cd).contiguous()
+    item = item.to(cd).contiguous()
+    att0 = params["att0"].to(cd).float()
+    mask = torch.ones(beh.shape[:2], device=dev)
+    with torch.enable_grad():
+        pooled = k2.din_attention_pool(beh, item, att0,
+                                       mask).requires_grad_()
+        h = torch.cat([prof.to(cd), pooled, item, ctx.to(cd)], dim=1)
+        logits = tower(params, h, cd, model.activation, model.dropout_rates,
+                       True, drop_gen)
+        dout = torch.autograd.grad(bce_loss(logits, y, w), pooled)[0]
+    return {"pool": (dout.contiguous(), beh, item, att0, mask),
+            "pooled": pooled.detach(), "params": params, "xb": xb,
+            "y": y, "w": w}
+
+
+def check_dense_kernels(torch, step):
+    """K2 and K2b against their plain versions on the dense DIN's first
+    step, with the phase-6 limits and controls that must exceed them: a
+    zeroed pool (K2) and d_att0 shifted by one position (K2b). Returns
+    (max errors, control readings)."""
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+
+    dout, beh, item, att0, mask = step["pool"]
+    errs, ctl = {}, {}
+    want = k2.din_attention_pool_plain(beh, item, att0, mask)
+    torch.cuda.synchronize()
+    errs["K2"] = max_err(torch, step["pooled"], want, "bfloat16",
+                         "K2 dense DIN forward")
+    atol, rtol = TOL["bfloat16"]
+    ctl["K2 pool zeroed"], _ = within(torch, torch.zeros_like(want), want,
+                                      rtol, atol)
+    require(ctl["K2 pool zeroed"] > 0,
+            "dense K2 control: a zeroed pool passes the limit")
+    got = k2.din_attention_pool_bwd(*step["pool"])
+    want = k2.din_attention_pool_bwd_plain(*step["pool"])
+    torch.cuda.synchronize()
+    for name, g, w_ in (("d_behaviors", got[0], want[0]),
+                        ("d_item", got[1], want[1])):
+        g_atol = GRAD_ATOL_REL * float(w_.float().abs().max())
+        bad, err = within(torch, g, w_, GRAD_RTOL_BF16, g_atol)
+        require(bad == 0, f"dense K2b {name}: {bad} entries outside rtol "
+                          f"2^-7 + atol {g_atol:.3g} (max err {err:.3g})")
+        errs[f"K2b {name}"] = err
+    a_atol = ATT0_ATOL_REL * float(want[2].abs().max())
+    bad, errs["K2b d_att0"] = within(torch, got[2], want[2], ATT0_RTOL,
+                                     a_atol)
+    require(bad == 0, f"dense K2b d_att0: {bad} entries outside rtol "
+                      f"{ATT0_RTOL} + {ATT0_ATOL_REL}·max")
+    ctl["K2b d_att0 shifted"], _ = within(
+        torch, torch.roll(got[2], 1), want[2], ATT0_RTOL, a_atol)
+    require(ctl["K2b d_att0 shifted"] > 0,
+            "dense K2b control: d_att0 shifted by one passes the limit")
+    log(f"[dense-kernels] K2 B,T,D={tuple(beh.shape)} bf16, no mask, vs "
+        f"plain: max err {errs['K2']:.3g} (tol atol={atol} rtol={rtol}); "
+        f"K2b max err d_behaviors {errs['K2b d_behaviors']:.3g}, d_item "
+        f"{errs['K2b d_item']:.3g}, d_att0 {errs['K2b d_att0']:.3g} "
+        f"(limits rtol 2^-7 + {GRAD_ATOL_REL}·max; d_att0 rtol {ATT0_RTOL}"
+        f" + {ATT0_ATOL_REL}·max); d_att0 {got[2].tolist()}; controls: a "
+        f"zeroed pool leaves {ctl['K2 pool zeroed']} entries outside, "
+        f"d_att0 shifted by one {ctl['K2b d_att0 shifted']}")
+    return errs, ctl
+
+
+def time_dense_kernels(torch, step):
+    """Device ms of K2 and K2b and their plain versions on the first
+    step's inputs, with their bounds."""
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+
+    pool = step["pool"]
+    B, T, D = pool[1].shape
+    k2_bytes, k2_flops, k2b_bytes, k2b_flops = pool_bounds(B, T, D)
+    out = {}
+    for key, fn, plain, nb, nf in (
+            ("K2", lambda i: k2.din_attention_pool(*pool[1:]),
+             lambda i: k2.din_attention_pool_plain(*pool[1:]),
+             k2_bytes, k2_flops),
+            ("K2b", lambda i: k2.din_attention_pool_bwd(*pool),
+             lambda i: k2.din_attention_pool_bwd_plain(*pool),
+             k2b_bytes, k2b_flops)):
+        r = dict(ms=device_ms(torch, fn, 1),
+                 plain_ms=device_ms(torch, plain, 1, iters=6),
+                 library_ms=None)
+        r["bound_ms"], r["bound_by"] = bound(nb, nf)
+        out[key] = r
+        log(f"[dense-kernels] {key} B,T,D=({B}, {T}, {D}) bf16 device ms "
+            f"per call: kernel {r['ms']:.5f}, plain {r['plain_ms']:.5f}, "
+            f"bound {r['bound_ms']:.5f} ({nb} B, {nf} flop, "
+            f"{r['bound_by']})")
+    return out
+
+
+def long_sequence_pool(torch, dev):
+    """The DIN pool at B = 1,024, T = 512, D = 64 bf16 (the JAX model's
+    own comparison shape, models/din.py:43-47), through K2 and through
+    the "xla" torch ops, device ms per call; the two must agree to bf16
+    precision."""
+    from goctr_tpu_torch.models import DIN
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+
+    B, T, D = 1024, 512, 64
+    rng = np.random.default_rng(SEED + 9)
+    beh = torch.from_numpy(rng.standard_normal((B, T, D), np.float32)).to(
+        dev, torch.bfloat16)
+    item = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(
+        dev, torch.bfloat16)
+    att0 = torch.from_numpy(rng.uniform(0.5, 1.5, T).astype(np.float32)).to(
+        dev)
+    mask = torch.ones(B, T, device=dev)
+    xla = DIN(4, T, D, D, 2, compute_dtype=torch.bfloat16)
+    got = k2.din_attention_pool(beh, item, att0, mask)
+    want = xla.pool(att0, beh, item)
+    bad, err = within(torch, got, want, 2 * GRAD_RTOL_BF16, 1e-3)
+    require(bad == 0, f"long-sequence pool: K2 vs xla {bad} entries "
+                      f"outside (max err {err:.3g})")
+    k2_ms = device_ms(torch, lambda i: k2.din_attention_pool(
+        beh, item, att0, mask), 1)
+    xla_ms = device_ms(torch, lambda i: xla.pool(att0, beh, item), 1)
+    nb, nf, _, _ = pool_bounds(B, T, D)
+    b_ms, by = bound(nb, nf)
+    log(f"[dense] long-sequence DIN pool B,T,D=({B}, {T}, {D}) bf16, "
+        f"device ms per call: K2 (attention_impl=\"pallas\") {k2_ms:.5f}, "
+        f"torch ops (\"xla\") {xla_ms:.5f}, bound {b_ms:.5f} ({by}); K2 vs "
+        f"xla max diff {err:.3g}")
+    return {"k2_ms": k2_ms, "xla_ms": xla_ms, "bound_ms": b_ms}
+
+
+def small_dense_check(torch, dev):
+    """Small f32 dense rankers at the test widths (U = 5, T = 3, D = 7,
+    item 7, ctx 5; D = 7 takes K2's generic path) trained 2 epochs on
+    the card and on the CPU from the same start, shuffle off and dropout
+    0 (the generators of two devices differ), for each model and both DIN
+    impls: loss curves within TRAJ_LOSS_RTOL, parameters within
+    TRAJ_TABLE_RTOL / TRAJ_TABLE_ATOL."""
+    from goctr_tpu_torch.models import (
+        DIN, MLPTower, SampleInfo, TrainSample, YoutubeDNN, train_ranker)
+    from goctr_tpu_torch.models.base import param_leaves
+    from goctr_tpu_torch.models.trainer import TrainedRanker, TrainerConfig
+
+    U, T, D, IT, C = 5, 3, 7, 7, 5
+    W = U + T * D + IT + C
+    info = SampleInfo((0, U), (U, U + T * D), (U + T * D, U + T * D + IT),
+                      (U + T * D + IT, W))
+    rng = np.random.default_rng(SEED + 10)
+    x = rng.random((1000, W), dtype=np.float32)
+    y = (rng.random(1000) < 0.3).astype(np.float32)
+    sample = TrainSample(x=x, y=y, info=info)
+    cfg = TrainerConfig(batch_size=200, epochs=2, early_stop=0, lr=3e-3,
+                        shuffle=False)
+    models = [MLPTower(in_dim=W, hidden=(16,)),
+              YoutubeDNN(U, T, D, IT, C, hidden=(16, 8),
+                         dropout_rates=(0.0, 0.0)),
+              DIN(U, T, D, IT, C, hidden=(16, 8), dropout_rates=(0.0, 0.0)),
+              DIN(U, T, D, IT, C, hidden=(16, 8), dropout_rates=(0.0, 0.0),
+                  attention_impl="pallas")]
+    worst = [0.0, 0.0]
+    for m in models:
+        p0 = m.init_params(torch.Generator().manual_seed(SEED))
+        out = {}
+        for d in ("cpu", dev):
+            start = TrainedRanker(model=m, params=p0, info=info,
+                                  behavior_len=m.behavior_len,
+                                  loss_curve=[])
+            out[str(d)] = train_ranker(m, sample, cfg, resume_from=start,
+                                       device=d)
+        c, g = out["cpu"], out[str(dev)]
+        what = f"small dense {type(m).__name__} " + getattr(
+            m, "attention_impl", "")
+        lc = np.abs(np.array(g.loss_curve) - c.loss_curve) / np.abs(
+            c.loss_curve)
+        worst[0] = max(worst[0], float(lc.max()))
+        require(lc.max() <= TRAJ_LOSS_RTOL,
+                f"{what}: loss curves differ by {lc.max():.3g}")
+        for a, b in zip(param_leaves(g.params), param_leaves(c.params)):
+            bad, err = within(torch, a.cpu(), b, TRAJ_TABLE_RTOL,
+                              TRAJ_TABLE_ATOL)
+            worst[1] = max(worst[1], err)
+            require(bad == 0, f"{what}: {bad} parameters outside (max err "
+                              f"{err:.3g})")
+    log(f"[dense] small f32 rankers (U,T,D=5,3,7), card vs CPU, 2 epochs, "
+        f"MLP, YouTube-DNN, DIN xla and pallas: max loss rel diff "
+        f"{worst[0]:.3g} (rtol {TRAJ_LOSS_RTOL}), max parameter err "
+        f"{worst[1]:.3g} (rtol {TRAJ_TABLE_RTOL}, atol {TRAJ_TABLE_ATOL})")
+
+
+def eval_metrics(torch, scores, y, uids, oracle, dev, check_numpy=False):
+    """Held-out AUC, GAUC and the oracle's AUC (the ceiling) by the
+    device metrics; with check_numpy also held to the numpy versions
+    within METRIC_ATOL. Returns the readings."""
+    from goctr_tpu_torch.core import metrics as mt
+
+    s_d = torch.from_numpy(np.asarray(scores, np.float32)).to(dev)
+    y_d = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+    u_d = torch.from_numpy(np.asarray(uids)).to(dev)
+    auc_d = mt.roc_auc_device(s_d, y_d)
+    gauc_d = mt.gauc_device(s_d, y_d, u_d)
+    ceil_d = mt.roc_auc_device(torch.from_numpy(
+        np.asarray(oracle, np.float32)).to(dev), y_d)
+    out = {"eval_auc": float(auc_d), "eval_gauc": float(gauc_d),
+           "eval_auc_ceiling": float(ceil_d)}
+    require(all(np.isfinite(v) for v in out.values()),
+            f"eval metrics not finite: {out}")
+    if check_numpy:
+        auc_np = mt.roc_auc_score(y, scores)
+        gauc_np = mt.gauc_np(y, scores, uids)
+        out["metric_err"] = max(abs(out["eval_auc"] - auc_np),
+                                abs(out["eval_gauc"] - gauc_np))
+        require(out["metric_err"] <= METRIC_ATOL,
+                f"device metrics vs numpy: AUC {out['eval_auc']} vs "
+                f"{auc_np}, GAUC {out['eval_gauc']} vs {gauc_np}")
+    return out
+
+
+def din_zero_pool(model):
+    """A DIN whose pool returns zeros, as a K2 that writes nothing would:
+    the control of the impl comparison."""
+    import dataclasses
+
+    class ZeroPool(type(model)):
+        def pool(self, att0, behaviors, item):
+            return super().pool(att0, behaviors, item) * 0.0
+
+    return ZeroPool(**{f.name: getattr(model, f.name)
+                       for f in dataclasses.fields(model)})
+
+
+def profile_dense_steps(torch, r, sample, cfg, dev, steps=3):
+    """profile_steps over training steps of a trained dense ranker (a
+    copy of its parameters and solver state), batches from the start of
+    the f16 rows."""
+    from goctr_tpu_torch.models.base import param_leaves
+    from goctr_tpu_torch.models.trainer import (
+        _params_on, make_trainer_solver, train_step, upload_rows)
+
+    bs = cfg.batch_size
+    params = _params_on(r.params, dev)
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    state = [x.clone() for x in r.opt_state]
+    solver = make_trainer_solver(cfg)
+    xd = upload_rows(sample.x[:4 * bs], 4 * bs, torch.float16, dev)
+    yd = torch.from_numpy(sample.y[:4 * bs]).to(dev)
+    w = torch.ones(bs, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step(i):
+        nonlocal state
+        sl = slice((i % 4) * bs, (i % 4 + 1) * bs)
+        _, state = train_step(r.model, params, solver, state,
+                              xd[sl].float(), yd[sl], w, sample.info, gen)
+
+    return profile_steps(torch, step, "dense-profile", steps)
+
+
+def dense_phase(torch, dev):
+    """Phase 9: the dense rankers (MLPTower, YoutubeDNN, DIN in both
+    attention_impls) trained by train_ranker at the ML-20M protocol's
+    widths (W = 281, batch 16,384, adam 1e-3, f16 storage, bf16 compute)
+    on DENSE_ROWS rows for DENSE_EPOCHS epochs from seed SEED, scored on
+    EVAL_ROWS held-out rows with predict_all, AUC and GAUC on the device
+    held to numpy. K2 and K2b checked and timed on the DIN "pallas" run's
+    first step; the long-sequence pool through K2 and the "xla" ops;
+    small f32 rankers card vs CPU. Returns the kernels-line entries of
+    K2 and K2b at the dense shape."""
+    import dataclasses
+
+    from goctr_tpu_torch.models import train_ranker
+
+    t_phase = time.perf_counter()
+    sample, x_ev, y_ev, u_ev, oracle = make_dense_workload(
+        DENSE_ROWS, EVAL_ROWS, seed=SEED)
+    steps = -(-DENSE_ROWS // DENSE_BATCH)
+    log(f"[dense] workload {DENSE_ROWS} + {EVAL_ROWS} held-out rows × "
+        f"{sample.x.shape[1]} columns ({steps} steps of {DENSE_BATCH}), "
+        f"positive rate {sample.y.mean():.4f}, {len(np.unique(u_ev))} "
+        f"held-out users, in {time.perf_counter() - t_phase:.1f} s")
+    models = dense_models(torch)
+    pallas = models[3]
+    step = dense_first_step(torch, pallas[1], sample, dense_cfg(pallas[2]),
+                            dev)
+    errs, ctl = check_dense_kernels(torch, step)
+    times = time_dense_kernels(torch, step)
+    del step
+    long_seq = long_sequence_pool(torch, dev)
+    small_dense_check(torch, dev)
+    torch.cuda.empty_cache()
+
+    # the main path: counts reset just before, read just after
+    counted = counted_kernels()
+    for f in counted.values():
+        f.launches = 0
+    results, readings = {}, {}
+    for name, model, l2 in models:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9     # earlier phases'
+        r = train_ranker(model, sample, dense_cfg(l2), device=dev)
+        scores = r.predict_all(x_ev)
+        peak = torch.cuda.max_memory_allocated() / 1e9 - held
+        lc = r.loss_curve
+        require(all(np.isfinite(lc)) and lc[-1] < lc[0],
+                f"dense {name}: the loss does not fall {lc}")
+        m = eval_metrics(torch, scores, y_ev, u_ev, oracle, dev,
+                         check_numpy=True)
+        require(m["eval_auc"] > 0.5 + DENSE_AUC_MARGIN,
+                f"dense {name}: eval AUC {m['eval_auc']} within "
+                f"{DENSE_AUC_MARGIN} of chance")
+        rate = DENSE_ROWS * (DENSE_EPOCHS - 1) / sum(r.epoch_times[1:])
+        step_ms = sum(r.epoch_times[1:]) / (steps * (DENSE_EPOCHS - 1)) * 1e3
+        results[name] = r
+        readings[name] = dict(m, rate=rate, step_ms=step_ms, peak=peak)
+        log(f"[dense] {name}: loss curve {lc}, epoch s {r.epoch_times}; "
+            f"steady-state {rate:.1f} ex/s, step {step_ms:.3f} ms; peak "
+            f"device memory {peak:.2f} GB above the {held:.2f} GB earlier "
+            f"phases hold; eval_auc {m['eval_auc']:.6f} "
+            f"eval_gauc {m['eval_gauc']:.6f} (ceiling "
+            f"{m['eval_auc_ceiling']:.6f}; device vs numpy max diff "
+            f"{m['metric_err']:.3g}, limit {METRIC_ATOL})")
+    launches = {k: f.launches for k, f in counted.items()}
+    require(launches["din_attention_pool"] > 0
+            and launches["din_attention_pool_bwd"] > 0,
+            f"dense: a kernel of the path was never launched {launches}")
+    per_epoch = launches["din_attention_pool_bwd"] // DENSE_EPOCHS
+    l_x, l_p = (results[k].loss_curve[0] for k in ("din xla", "din pallas"))
+    rel = abs(l_p - l_x) / abs(l_x)
+    require(rel <= DIN_IMPL_LOSS_RTOL,
+            f"dense DIN pallas vs xla first-epoch loss {l_p} vs {l_x} (rel "
+            f"{rel:.3g} > {DIN_IMPL_LOSS_RTOL})")
+    r_ctl = train_ranker(din_zero_pool(pallas[1]), sample,
+                         dataclasses.replace(dense_cfg(pallas[2]), epochs=1),
+                         device=dev)
+    ctl["DIN pool zeroed"] = abs(r_ctl.loss_curve[0] - l_x) / abs(l_x)
+    require(ctl["DIN pool zeroed"] > DIN_IMPL_LOSS_RTOL,
+            f"dense control: DIN with its pool zeroed reads "
+            f"{ctl['DIN pool zeroed']:.3g}, inside {DIN_IMPL_LOSS_RTOL}")
+    prof = profile_dense_steps(torch, results["din pallas"], sample,
+                               dense_cfg(pallas[2]), dev)
+    del results, r_ctl
+    torch.cuda.empty_cache()
+    log(f"[dense] done in {time.perf_counter() - t_phase:.1f} s: DIN "
+        f"pallas vs xla first-epoch loss rel diff {rel:.3g} (limit "
+        f"{DIN_IMPL_LOSS_RTOL}); launches {launches} (K2b {per_epoch} an "
+        f"epoch); profiled DIN pallas step device busy "
+        f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}; "
+        f"long-sequence pool K2 {long_seq['k2_ms']:.5f} ms vs xla "
+        f"{long_seq['xla_ms']:.5f}; controls {ctl}; readings {readings}")
+    entries = []
+    for key, name, src, replaces, count in (
+            ("K2", "din_attention (dense DIN)", "din_attention.cu",
+             "goctr_tpu/ops/pallas/din_attention.py:97",
+             "din_attention_pool"),
+            ("K2b", "din_attention_bwd (dense DIN)", "din_attention_bwd.cu",
+             "goctr_tpu/parallel/sparse_ctr.py:128",
+             "din_attention_pool_bwd")):
+        r = times[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"goctr_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[count],
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.split()[0] == key),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    return entries, readings
 
 
 def main() -> int:
@@ -2458,10 +3021,8 @@ def main() -> int:
     din_plain_ms = device_ms(torch, lambda i: k2.din_attention_pool_plain(
         eb, item, att0, mask), 1)
     B = eb.shape[0]
-    din_bytes = B * T * D * 2 + B * D * 2 + T * 4 + B * T * 4 + B * D * 2
-    din_flops = B * T * (6 * D + 12)
-    din_bound_ms = max(din_bytes / HBM_BYTES_PER_S,
-                       din_flops / F32_FLOPS_PER_S) * 1e3
+    din_bytes, din_flops, _, _ = pool_bounds(B, T, D)
+    din_bound_ms, din_bound_by = bound(din_bytes, din_flops)
     log(f"[kernels] K1 n={n_ids} D={D} bf16 out, device ms per call: kernel "
         f"{gather_ms:.5f} (packed table {gather_packed_ms:.5f}), plain "
         f"{gather_plain_ms:.5f}, index_select {gather_lib_ms:.5f}, bound "
@@ -2551,6 +3112,10 @@ def main() -> int:
 
     # 8. the mesh trainer ---------------------------------------------------
     k3_entry = mesh_phase(torch, dev, gen)
+    torch.cuda.empty_cache()
+
+    # 9. the dense rankers --------------------------------------------------
+    dense_entries, _ = dense_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -2613,16 +3178,14 @@ def main() -> int:
          "replaces": "goctr_tpu/ops/pallas/din_attention.py:97",
          "launches": launches["din_attention"], "max_abs_err": k2_err,
          "ms": din_ms, "plain_ms": din_plain_ms, "bound_ms": din_bound_ms,
-         "bound_by": ("bytes" if din_bytes / HBM_BYTES_PER_S
-                      >= din_flops / F32_FLOPS_PER_S else "operations"),
-         "library_ms": None},
-    ] + train_entries + [k3_entry]}
+         "bound_by": din_bound_by, "library_ms": None},
+    ] + train_entries + [k3_entry] + dense_entries}
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "
         f"{min(ctl.values()):.3g}, grouped {min(g_ctl.values()):.3g}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"GB since phase 8's main path; total "
+        f"GB since phase 9's last dense run; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

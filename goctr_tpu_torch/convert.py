@@ -1,5 +1,5 @@
-"""Carry the JAX package's SparseCTR parameters and trainer state into
-the port.
+"""Carry the JAX package's parameters and trainer state into the port:
+SparseCTR's, and the dense rankers' (MLPTower, YoutubeDNN, DIN).
 
 The input is numpy, as the JAX side hands it over: the dense parameters
 flattened by `goctr_tpu.models.io._flatten_params` (`att0`, `mlp.<i>`,
@@ -10,7 +10,10 @@ imports JAX; a caller that holds JAX arrays converts them with numpy.
 `scanned_from_jax` builds the TrainedScanned the port's scanned trainer
 resumes from (`train_sparse_scanned(..., resume_from=...)`),
 `sparse_ranker_from_jax` the TrainedSparseRanker of the mesh trainer
-(`train_sparse(..., resume_from=...)`).
+(`train_sparse(..., resume_from=...)`), and `ranker_from_jax` the
+TrainedRanker of the dense trainer (`train_ranker(..., resume_from=...)`)
+from a JAX TrainedRanker's `_flatten_params(params)` and
+`jax.tree.leaves(opt_state)`.
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
 from goctr_tpu_torch.core.meshes import single_device_mesh
+from goctr_tpu_torch.models.base import SampleInfo
+from goctr_tpu_torch.models.io import _unflatten_params
+from goctr_tpu_torch.models.trainer import TrainedRanker, _params_on
 from goctr_tpu_torch.ops.kernels.row_optimizer import LANES, group_size
 from goctr_tpu_torch.parallel.scanned import TrainedScanned
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
@@ -115,3 +121,22 @@ def sparse_ranker_from_jax(model: SparseCTR, flat: dict[str, np.ndarray],
         loss_curve=list(loss_curve or []), opt_state=state, acc=acc_t,
         packed_group=group_size(d) if layout == "grouped" else 1,
         table_packed=layout == "packed")
+
+
+def ranker_from_jax(model, flat_params: dict[str, np.ndarray],
+                    opt_leaves: list[np.ndarray] | None, info: SampleInfo,
+                    behavior_len: int, loss_curve: list[float] | None = None,
+                    *, device: str | torch.device = "cuda") -> TrainedRanker:
+    """A JAX TrainedRanker's state as the port's, on `device`: `model` the
+    port's MLPTower / YoutubeDNN / DIN of the same config, `flat_params`
+    the JAX params flattened (`att0`, `bias.<i>`, `mlp.<i>`),
+    `opt_leaves` the solver state's leaves in JAX leaf order (or None),
+    `info` and `behavior_len` the JAX ranker's. The result can be passed
+    to train_ranker as resume_from, predict or be saved."""
+    dev = resolve_device(device)
+    params = _params_on(_unflatten_params(flat_params), dev)
+    state = (None if opt_leaves is None else
+             [torch.from_numpy(np.array(x)).to(dev) for x in opt_leaves])
+    return TrainedRanker(model=model, params=params, info=info,
+                         behavior_len=behavior_len,
+                         loss_curve=list(loss_curve or []), opt_state=state)

@@ -228,7 +228,9 @@ din_attention_pool_bwd.launches = 0
 
 class DinAttentionPool(torch.autograd.Function):
     """The pool with a gradient: forward K2, backward K2b (their plain
-    versions on the CPU). mask takes no gradient."""
+    versions on the CPU). mask takes no gradient; K2b computes all three
+    gradients, and only those of inputs that need one are returned (the
+    dense DIN's behaviors and item are data)."""
 
     @staticmethod
     def forward(ctx, behaviors, item, att0, mask):
@@ -238,6 +240,7 @@ class DinAttentionPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         behaviors, item, att0, mask = ctx.saved_tensors
-        d_beh, d_item, d_att0 = din_attention_pool_bwd(
+        grads = din_attention_pool_bwd(
             dout.contiguous(), behaviors, item, att0, mask)
-        return d_beh, d_item, d_att0, None
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)

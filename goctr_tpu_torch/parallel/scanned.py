@@ -87,7 +87,7 @@ import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
 from goctr_tpu_torch.models.io import _flatten_params
-from goctr_tpu_torch.models.trainer import TrainerConfig
+from goctr_tpu_torch.models.trainer import TrainerConfig, make_trainer_solver
 from goctr_tpu_torch.ops.kernels.compact import compact_runsums_block
 from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
@@ -101,8 +101,8 @@ from goctr_tpu_torch.ops.scatter import scatter_add_rows
 from goctr_tpu_torch.ops.segsum import (
     _cumsum_rows, segment_rows_dedup, sorted_run_sums,
 )
-from goctr_tpu_torch.optim.optimizers import Solver, make_solver
-from goctr_tpu_torch.optim.schedules import make_schedule
+from goctr_tpu_torch.ops.losses import bce_loss
+from goctr_tpu_torch.optim.optimizers import Solver
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 from goctr_tpu_torch.parallel.table_opt import TableOptConfig
 
@@ -391,22 +391,6 @@ def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
         impl = apply_line_updates if kernel else apply_line_updates_split
         impl(table, ltgt, lrows, skip_ge=packed_lines(vocab, d), **kw)
     return overflow
-
-
-def bce_loss(logits: torch.Tensor, y: torch.Tensor,
-             w: torch.Tensor) -> torch.Tensor:
-    """Weighted mean of the stable BCE-with-logits (scanned.py:513-515)."""
-    losses = (torch.clamp(logits, min=0) - logits * y
-              + torch.log1p(torch.exp(-torch.abs(logits))))
-    return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
-
-
-def make_trainer_solver(cfg: TrainerConfig) -> Solver:
-    """The dense-parameter solver the scanned trainer uses for `cfg`."""
-    schedule = make_schedule(cfg.lr_schedule, cfg.lr, cfg.power_t)
-    return make_solver(cfg.solver, schedule, l2=cfg.l2,
-                       weight_decay=cfg.weight_decay, momentum=cfg.momentum,
-                       beta1=cfg.beta1, beta2=cfg.beta2, epsilon=cfg.epsilon)
 
 
 def trainer_generator(cfg: TrainerConfig, epochs_done: int,

@@ -26,14 +26,9 @@ the autograd Function DinAttentionPool.
 
 Training mode (`train=True` with a `generator`) applies inverted dropout
 after each hidden activation, as the JAX tower does; the keep mask comes
-from the generator, so it cannot match JAX's stream. A bf16 product has
-no PyTorch derivative, so `matmul_f32` goes through an autograd Function
-with the backward JAX computes for `dot(x_bf16, w_bf16,
-preferred_element_type=f32)` (read from its jaxpr): dx = bf16(g · wᵀ),
-dw = bf16(xᵀ · g), both products in float32 from the float32 cotangent
-g. The weight's `.to(bf16)` then widens dw back to float32, as JAX's
-`astype(cd)` does. These are plain matmuls, left to cuBLAS on the card
-(with TF32 off) as JAX leaves them to XLA.
+from the generator, so it cannot match JAX's stream. The tower's
+products are `ops/matmul.py`'s `matmul_f32` (JAX's backward for a bf16
+product with a float32 result).
 """
 from __future__ import annotations
 
@@ -47,6 +42,7 @@ from goctr_tpu_torch.core.meshes import Mesh
 from goctr_tpu_torch.models.base import dropout, glorot
 from goctr_tpu_torch.ops.activations import ACTIVATIONS
 from goctr_tpu_torch.ops.kernels.din_attention import DinAttentionPool
+from goctr_tpu_torch.ops.matmul import matmul_f32
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
     init_packed_table_grouped,
 )
@@ -65,38 +61,6 @@ class SparseBatch:
     item_ids: torch.Tensor        # [B] int32
     ctx: torch.Tensor             # [B, C] float32 dense
     labels: torch.Tensor          # [B] float32
-
-
-class _MatmulF32(torch.autograd.Function):
-    """bf16 × bf16 → f32 product with JAX's backward (module docstring).
-    On the card `torch.mm(..., out_dtype=float32)` (f32 accumulation, no
-    bf16 rounding of the result). The CPU has no such overload; there the
-    operands are widened first, which gives the same product, since a
-    product of two bf16 values is exact in float32."""
-
-    @staticmethod
-    def forward(ctx, h, w):
-        ctx.save_for_backward(h, w)
-        if h.is_cuda:
-            return torch.mm(h, w, out_dtype=torch.float32)
-        return h.float() @ w.float()
-
-    @staticmethod
-    def backward(ctx, g):
-        h, w = ctx.saved_tensors
-        dh = dw = None
-        if ctx.needs_input_grad[0]:
-            dh = (g @ w.float().t()).to(h.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = (h.float().t() @ g).to(w.dtype)
-        return dh, dw
-
-
-def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """h @ w with a float32 result from compute-dtype operands."""
-    if h.dtype == torch.float32:
-        return h @ w
-    return _MatmulF32.apply(h, w)
 
 
 class SparseCTR(nn.Module):

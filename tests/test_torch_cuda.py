@@ -56,10 +56,12 @@ def cuda():
 
 # POOL_SHAPES: rows past 512 B (200, 264), rows of 6 or 12 bytes (D = 3:
 # the generic path), the grouped training shape (16 lanes a warp
-# instruction), B not a multiple of the persistent grid's warp slots, and
-# T = 5000 (T-tiles)
+# instruction), B not a multiple of the persistent grid's warp slots,
+# T = 5000 (T-tiles), and the dense DIN's shapes: the ML-20M protocol's
+# batch (B = 16,384, T = 10, D = 16) and the test widths (T = 3, D = 7:
+# rows of 14 or 28 bytes, the generic path)
 POOL_SHAPES = [(64, 6, 264), (128, 9, 3), (65536, 32, 16), (5000, 32, 64),
-               (8, 5000, 16)]
+               (8, 5000, 16), (16384, 10, 16), (200, 3, 7)]
 
 
 @pytest.mark.cuda
@@ -69,7 +71,7 @@ POOL_SHAPES = [(64, 6, 264), (128, 9, 3), (65536, 32, 16), (5000, 32, 64),
 def test_din_kernel_matches_plain(cuda, dtype, b, t, d):
     rng = np.random.default_rng(4)
     beh = torch.from_numpy(rng.normal(0, 1, (b, t, d)).astype(np.float32))
-    beh[0, 3] = 0.0                                  # a zero behavior row
+    beh[0, min(3, t - 1)] = 0.0                      # a zero behavior row
     mask = torch.from_numpy((rng.random((b, t)) > 0.3).astype(np.float32))
     mask[1] = 0.0                                    # an all-masked row
     item = torch.from_numpy(rng.normal(0, 1, (b, d)).astype(np.float32))
@@ -204,7 +206,7 @@ def test_gather_pool_mean_gradient(cuda):
 def _din_bwd_inputs(b, t, d, dtype, dev, seed=5):
     rng = np.random.default_rng(seed)
     beh = torch.from_numpy(rng.normal(0, 1, (b, t, d)).astype(np.float32))
-    beh[0, 3] = 0.0                                  # a zero behavior row
+    beh[0, min(3, t - 1)] = 0.0                      # a zero behavior row
     mask = torch.from_numpy((rng.random((b, t)) > 0.3).astype(np.float32))
     mask[1] = 0.0                                    # an all-masked row
     item = torch.from_numpy(rng.normal(0, 1, (b, d)).astype(np.float32))
@@ -237,6 +239,34 @@ def test_din_bwd_kernel_matches_plain(cuda, dtype, b, t, d):
     # repeatable bit for bit (no float atomics)
     again = k2.din_attention_pool_bwd(*args)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d", POOL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_din_kernels_unmasked_match_plain(cuda, dtype, b, t, d):
+    """The dense DIN's call: no mask (every behavior counts; K2 takes
+    None as all ones), and through DinAttentionPool a gradient for att0
+    only (behaviors and item are data). Limits as in the masked tests."""
+    dout, beh, item, att0, _ = _din_bwd_inputs(b, t, d, dtype, cuda)
+    mask = torch.ones(b, t, device=cuda)
+    got = k2.din_attention_pool(beh, item, att0)
+    want = k2.din_attention_pool_plain(beh, item, att0, mask)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
+                               rtol=rtol)
+    want_b = k2.din_attention_pool_bwd_plain(dout, beh, item, att0, mask)
+    got_b = k2.din_attention_pool_bwd(dout, beh, item, att0, mask)
+    torch.cuda.synchronize()
+    for g, w in zip(got_b[:2], want_b[:2]):
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-6,
+                                   rtol=rtol)
+    torch.testing.assert_close(got_b[2], want_b[2], atol=1e-5, rtol=1e-5)
+    a = att0.clone().requires_grad_()
+    before = k2.din_attention_pool_bwd.launches
+    k2.DinAttentionPool.apply(beh, item, a, mask).backward(dout)
+    assert k2.din_attention_pool_bwd.launches == before + 1
+    torch.testing.assert_close(a.grad, want_b[2], atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -535,3 +565,48 @@ def test_scatter_add_rows_order_is_fixed(cuda):
     want = scatter_add_rows(acc.clone()[:, None], ids, sq)
     assert torch.equal(scatter_add_rows(acc.clone()[:, None], ids[order],
                                         sq[order]), want)
+
+
+@pytest.mark.cuda
+def test_streaming_trainer_on_the_card(cuda):
+    """The streaming trainer's pinned buffers and side-stream copies: on
+    the card, two chunks (the second ragged) train as on the CPU (f32 sums
+    in other orders: loss curves within rtol 1e-5), and one chunk as the
+    resident trainer on the card (the same arithmetic; cuBLAS may take
+    another kernel for the chunk buffer's row stride: rtol 1e-6)."""
+    from goctr_tpu_torch.models import MLPTower, SampleInfo, TrainSample
+    from goctr_tpu_torch.models.base import param_leaves
+    from goctr_tpu_torch.models.streaming import train_ranker_streaming
+    from goctr_tpu_torch.models.trainer import (
+        TrainedRanker, TrainerConfig, train_ranker)
+
+    rng = np.random.default_rng(3)
+    x = rng.random((2500, 10)).astype(np.float32)
+    y = (x[:, 0] > x[:, 1]).astype(np.float32)
+    sample = TrainSample(x=x, y=y, info=SampleInfo((0, 10), (10, 10),
+                                                   (10, 10), (10, 10)))
+    cfg = TrainerConfig(batch_size=128, epochs=3, early_stop=0,
+                        shuffle=False, lr=5e-3)
+    p0 = MLPTower(in_dim=10, hidden=(8,)).init_params(
+        torch.Generator().manual_seed(0))
+
+    class Fixed(MLPTower):
+        def init_params(self, generator):
+            return {k: [t.to(generator.device, copy=True) for t in v]
+                    for k, v in p0.items()}
+
+    runs = {d: train_ranker_streaming(Fixed(in_dim=10, hidden=(8,)), sample,
+                                      cfg, chunk_rows=2048, device=d)
+            for d in ("cpu", cuda)}
+    np.testing.assert_allclose(runs[cuda].loss_curve, runs["cpu"].loss_curve,
+                               rtol=1e-5)
+    one = train_ranker_streaming(Fixed(in_dim=10, hidden=(8,)), sample, cfg,
+                                 chunk_rows=2560, device=cuda)
+    res = train_ranker(Fixed(in_dim=10, hidden=(8,)), sample, cfg,
+                       resume_from=TrainedRanker(
+                           model=MLPTower(in_dim=10, hidden=(8,)),
+                           params=p0, info=sample.info, behavior_len=0,
+                           loss_curve=[]), device=cuda)
+    np.testing.assert_allclose(one.loss_curve, res.loss_curve, rtol=1e-6)
+    for a, b in zip(param_leaves(one.params), param_leaves(res.params)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
