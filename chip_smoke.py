@@ -104,6 +104,29 @@ Phases, in order; any failure raises and the script exits nonzero:
                AUC and GAUC on the card held to numpy and above chance;
                the two DIN impls' first-epoch losses agree, and a pool
                that returns zeros (control) does not; a profiled step.
+ 10. item2vec — the port's Word2Vec at the JAX package's bench size
+               (scripts/bench_item2vec.py: ~9.5M words of planted
+               clusters as str tokens, 10k vocab; skipgram + hs, dim 16,
+               window 5, batch 65,536, 3 iterations): words/s and
+               pair-updates/s over iterations 2-3, peak device memory,
+               the top-5 neighbour purity gate (>= 0.95, numpy oracle)
+               with random vectors as its control; the pipeline's own
+               train_embedding call (batch 8,192, one iteration); a
+               profiled slice of blocks (idle share); the four
+               combinations card vs CPU on the same draws, with a
+               control; Searcher's top-10 of 1,000 queries against
+               numpy; the text format's round trip of the 10k-word map.
+               No kernel lies on this path.
+ 11. mlp     — the sklearn-style MLPs at full width: MLPClassifier((100,),
+               relu, adam, alpha 1e-5) on 131,072 of phase 9's planted
+               281-column rows, 3 epochs of batch 200, held-out AUC
+               > 0.55; one epoch of sgd + Nesterov; full-batch lbfgs,
+               bfgs (dense 28,301² inverse Hessian) and cg, 10 iterations
+               each, whose losses must fall; MLPRegressor (64, 64) and
+               Neural [342, 64, 64, 1] at examples/futuresales.py's
+               layouts on 65,536 rows of its planted sales signal, R² > 0;
+               small models card vs CPU with a control. No kernel lies
+               on this path.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
@@ -246,6 +269,41 @@ METRIC_ATOL = 1e-9
 # intermediate), first-epoch mean loss from the same start: an H100 read
 # 1.57e-5; the control, a pool that returns zeros, 2.93e-4 (PERF.md)
 DIN_IMPL_LOSS_RTOL = 1e-4
+# phase 10, item2vec: the JAX package's bench corpus
+# (scripts/bench_item2vec.py:44-67, its defaults: ~9.5M words, 10k vocab,
+# 500 clusters, 100k docs) and run (skipgram + hs, dim 16, window 5, batch
+# 65,536, min_count 1, seed 1, 3 iterations; the gate of BENCH_NOTES.md:503:
+# top-5 neighbour purity >= 0.95 over 500 queries; random vectors read
+# ~2·10^-3)
+W2V_CORPUS = dict(n_words=9_500_000, vocab=10_000, n_clusters=500,
+                  n_docs=100_000, p_in=0.85, seed=0)
+W2V_BENCH_BATCH = 65_536
+W2V_ITERS = 3
+W2V_PROF_BLOCKS = 16
+PURITY_MIN = 0.95
+PURITY_CONTROL_MAX = 0.1
+# item2vec card vs CPU from the same draws: the batched products sum in
+# other orders and index_add_'s atomics add a hot row's terms in any
+# order on the card; the trainer tolerances (TRAJ_TABLE_*), with a control
+W2V_RTOL, W2V_ATOL = 1e-4, 1e-5
+# Searcher's f32 similarities (TF32 off) against numpy's f64
+SEARCH_ATOL = 1e-5
+# phase 11, the sklearn-style MLPs: phase 9's planted 281-column rows
+# (make_dense_workload), 131,072 to train and 32,768 held out; the
+# classifier of the reference's main.go:42-47 ((100,), relu, adam, alpha
+# 1e-5, batch "auto" = 200); the full-batch solvers 10 iterations each
+MLP_ROWS, MLP_EVAL_ROWS = 131_072, 32_768
+MLP_EPOCHS = 3
+MLP_AUC_MIN = 0.55
+MLP_FULLBATCH_ITERS = 10
+# examples/futuresales.py's regressor and Neural (342 columns), 2 epochs
+SALES_ROWS, SALES_EVAL_ROWS = 65_536, 16_384
+SALES_EPOCHS = 2
+# small MLPs card vs CPU: loss curves rtol 1e-5 (parameters: TRAJ_TABLE_*);
+# lbfgs only over its first iterations: its zoom line search branches on
+# f32 comparisons, and an ulp can pick another trial step later
+MLP_LOSS_RTOL = 1e-5
+MLP_LBFGS_TIGHT = 4
 
 
 def require(cond: bool, what: str) -> None:
@@ -2923,6 +2981,468 @@ def dense_phase(torch, dev):
     return entries, readings
 
 
+# ------------------------------------------------------------ phase 10 --
+def make_cluster_corpus(n_words, vocab, n_clusters, n_docs, p_in=0.85,
+                        seed=0):
+    """The JAX package's item2vec bench corpus
+    (scripts/bench_item2vec.py:44-67, copied; W2V_CORPUS holds its
+    defaults): items partition into
+    clusters of vocab / n_clusters; each doc owns a zipf-popular home
+    cluster and draws p_in of its words from it, the rest globally.
+    Returns (docs as int arrays, cluster_of [vocab])."""
+    rng = np.random.default_rng(seed)
+    per = vocab // n_clusters
+    cluster_of = np.minimum(np.arange(vocab) // per, n_clusters - 1)
+    p = 1.0 / np.arange(1, n_clusters + 1) ** 1.05
+    p /= p.sum()
+    doc_len = np.maximum(rng.poisson(n_words / n_docs, n_docs), 4)
+    docs = []
+    home = rng.choice(n_clusters, n_docs, p=p)
+    for d in range(n_docs):
+        L = doc_len[d]
+        inside = rng.random(L) < p_in
+        w = np.where(inside, home[d] * per + rng.integers(0, per, L),
+                     rng.integers(0, vocab, L))
+        docs.append(w.astype(np.int64))
+    return docs, cluster_of
+
+
+def neighbor_purity(vecs, ids, cluster_of, k: int = 5, n_query: int = 500,
+                    seed: int = 0) -> float:
+    """Share of the top-k cosine neighbours that share the query's
+    planted cluster (the bench's numpy oracle,
+    scripts/bench_item2vec.py:70-83; `ids` maps rows to item ids)."""
+    vn = vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True),
+                           1e-12)
+    rng = np.random.default_rng(seed)
+    q = rng.choice(len(ids), min(n_query, len(ids)), replace=False)
+    sims = vn[q] @ vn.T
+    sims[np.arange(len(q)), q] = -np.inf
+    top = np.argpartition(sims, -k, axis=1)[:, -k:]
+    return float((cluster_of[ids[top]] == cluster_of[ids[q]][:, None]
+                  ).mean())
+
+
+class IterLog:
+    """Collects Word2Vec's per-iteration records (verbose=True logs each
+    iteration's examples and seconds after its one sync)."""
+
+    def __init__(self):
+        import logging
+
+        self.rows = []
+        handler = logging.Handler()
+        handler.emit = lambda r: self.rows.append(r.args[:3]) \
+            if r.msg.startswith("iter") else None
+        self.logger = logging.getLogger("goctr_tpu_torch.embedding.word2vec")
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(handler)
+        self.handler = handler
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def w2v_with_draws(torch, dev, source_dev):
+    """A Word2Vec subclass on `dev` whose draws come from a generator on
+    `source_dev` (seed·1000 + iteration) and are moved to `dev`: the card
+    and the CPU then train on the same draws."""
+    from goctr_tpu_torch.embedding.word2vec import EpochDraws, Word2Vec
+
+    class SameDraws(Word2Vec):
+        def _draws(self, gen, it, chunk, n):
+            g = torch.Generator(device=source_dev).manual_seed(
+                self.opts.seed * 1000 + it)
+            d = Word2Vec._draws(self, g, it, chunk, n)
+            neg = d.negatives
+            return EpochDraws(d.uniform.to(dev), d.radius.to(dev),
+                              None if neg is None else
+                              (lambda b: neg(b).to(dev)))
+    return SameDraws
+
+
+def check_w2v_card_vs_cpu(torch, dev):
+    """All four combinations on a small corpus (~20k words, vocab 200),
+    the card and the CPU fed the same draws: tables within W2V_ATOL /
+    W2V_RTOL; control: the card's w_in with one row written as the next
+    id's."""
+    raw, _ = make_cluster_corpus(20_000, 200, 10, 400, seed=SEED + 3)
+    docs = [[str(w) for w in d] for d in raw]
+    worst, ctl = 0.0, []
+    for model in ("skipgram", "cbow"):
+        for opt in ("hs", "ns"):
+            kw = dict(dim=16, window=5, iters=2, min_count=1,
+                      batch_size=2048, seed=SEED + 4, model=model,
+                      optimizer=opt)
+            out = {str(d): w2v_with_draws(torch, d, "cpu")(
+                **kw, device=d).train(docs) for d in ("cpu", dev)}
+            c, g = out["cpu"], out[str(dev)]
+            for name in ("w_in", "w_out"):
+                bad, err = within(torch, torch.from_numpy(getattr(g, name)),
+                                  torch.from_numpy(getattr(c, name)),
+                                  W2V_RTOL, W2V_ATOL)
+                worst = max(worst, err)
+                require(bad == 0, f"item2vec {model}/{opt} card vs CPU: "
+                                  f"{bad} {name} entries outside (max err "
+                                  f"{err:.3g})")
+            require(g.words_trained == c.words_trained,
+                    f"item2vec {model}/{opt}: pairs {g.words_trained} vs "
+                    f"{c.words_trained}")
+            wrong = g.w_in.copy()
+            wrong[0] = wrong[1]
+            bad, err = within(torch, torch.from_numpy(wrong),
+                              torch.from_numpy(c.w_in), W2V_RTOL, W2V_ATOL)
+            ctl.append(err)
+            require(bad > 0, f"item2vec control {model}/{opt} reads {err}")
+    log(f"[item2vec] card vs CPU, same draws, 4 combinations × 2 "
+        f"iterations on {sum(map(len, docs))} words: max table err "
+        f"{worst:.3g} (atol {W2V_ATOL}, rtol {W2V_RTOL}); controls (a row "
+        f"written as the next id's) read {min(ctl):.3g} and more")
+    return worst
+
+
+def check_searcher(torch, dev, emb):
+    """Searcher on the card: top-10 of 1,000 queries against numpy's
+    float64 similarities: each returned similarity within SEARCH_ATOL of
+    numpy's for that word, and the k-th within SEARCH_ATOL of numpy's
+    k-th best."""
+    from goctr_tpu_torch.embedding.search import Searcher
+
+    words, mat = emb.as_arrays()
+    s = Searcher(emb, device=dev)
+    q = mat[:1000]
+    t0 = time.perf_counter()
+    res = s.search_vec(q, 10)
+    ms = (time.perf_counter() - t0) * 1e3
+    vn = mat / np.maximum(np.linalg.norm(mat, axis=1, keepdims=True), 1e-12)
+    qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    sims = qn.astype(np.float64) @ vn.T.astype(np.float64)
+    best = -np.sort(-sims, axis=1)[:, :10]
+    index = {w: i for i, w in enumerate(words)}
+    err = 0.0
+    for r, row in enumerate(res):
+        got = np.array([sims[r, index[w]] for w, _ in row])
+        err = max(err, np.abs(got - [v for _, v in row]).max(),
+                  (best[r] - got).max())
+    require(err <= SEARCH_ATOL, f"Searcher top-10 vs numpy: {err:.3g}")
+    neighbours = s.search(words[0], 5)
+    require(len(neighbours) == 5 and words[0] not in
+            [w for w, _ in neighbours], f"Searcher.search: {neighbours}")
+    log(f"[item2vec] Searcher on the card: 1,000 queries × {len(words)} "
+        f"words top-10 in {ms:.1f} ms, max err vs numpy {err:.3g} (limit "
+        f"{SEARCH_ATOL})")
+
+
+def item2vec_phase(torch, dev):
+    """Phase 10: item2vec at the JAX bench's size (run A), the pipeline's
+    train_embedding call (run B), a profiled slice of blocks, the
+    neighbour-purity gate with a control, card vs CPU, Searcher and the
+    text round trip. Returns the readings."""
+    import io
+
+    from goctr_tpu_torch.embedding import store
+    from goctr_tpu_torch.embedding.word2vec import Word2Vec
+
+    t_phase = time.perf_counter()
+    raw, cluster_of = make_cluster_corpus(**W2V_CORPUS)
+    docs = [[str(w) for w in d] for d in raw]
+    n_words = sum(map(len, docs))
+    t_corpus = time.perf_counter() - t_phase
+    iters = IterLog()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        w2v = Word2Vec(dim=16, window=5, model="skipgram", optimizer="hs",
+                       batch_size=W2V_BENCH_BATCH, min_count=1, seed=1,
+                       iters=W2V_ITERS, verbose=True, device=dev).train(docs)
+        wall_a = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 - held
+        run_a, iters.rows = iters.rows, []
+        t0 = time.perf_counter()
+        emb_b = store.train_embedding(docs, window=5, dim=16, iters=1,
+                                      verbose=True, device=dev)
+        wall_b = time.perf_counter() - t0
+        run_b = iters.rows
+    finally:
+        iters.close()
+    steady = run_a[1:]
+    secs = sum(r[2] for r in steady)
+    rate_a = n_words * len(steady) / secs
+    pairs_a = sum(r[1] for r in steady) / secs
+    rate_b = n_words / run_b[0][2]
+    ids = np.asarray([int(w2v.dictionary.word(i))
+                      for i in range(len(w2v.dictionary))])
+    purity = neighbor_purity(w2v.vectors(), ids, cluster_of)
+    control = neighbor_purity(np.random.default_rng(SEED).normal(
+        size=w2v.vectors().shape), ids, cluster_of)
+    require(purity >= PURITY_MIN, f"item2vec purity {purity} < {PURITY_MIN}")
+    require(control <= PURITY_CONTROL_MAX,
+            f"item2vec purity control (random vectors) reads {control}")
+    bp_a, bp_b = w2v._block_positions(), 8192 // 10      # 2·window = 10
+    log(f"[item2vec] corpus {n_words} words, {len(docs)} docs, vocab "
+        f"{len(w2v.dictionary)} (drawn in {t_corpus:.1f} s). Run A "
+        f"(skipgram + hs, dim 16, window 5, batch {W2V_BENCH_BATCH}: bp "
+        f"{bp_a}, ~{-(-n_words // bp_a)} blocks; {W2V_ITERS} iterations): "
+        f"iteration s {[round(r[2], 4) for r in run_a]}, pairs "
+        f"{[r[1] for r in run_a]}; over iterations 2-{W2V_ITERS} "
+        f"{rate_a:.1f} words/s, {pairs_a:.1f} pair-updates/s; the call "
+        f"{wall_a:.1f} s; peak device memory {peak:.3f} GB above the "
+        f"{held:.2f} GB earlier phases hold; top-5 neighbour purity "
+        f"{purity:.4f} (gate {PURITY_MIN}; random vectors {control:.4f}). "
+        f"Run B (train_embedding: batch 8192, bp {bp_b}, min_count 5, one "
+        f"iteration): {run_b[0][2]:.4f} s, {rate_b:.1f} words/s; the call "
+        f"{wall_b:.1f} s ({n_words / wall_b:.1f} words/s end to end), "
+        f"{len(emb_b)} words kept")
+
+    # a profiled slice: the epoch over the corpus's first W2V_PROF_BLOCKS
+    # blocks at run A's settings, on its trained tables
+    counts = w2v.dictionary.counts_array()
+    epoch, _, _ = w2v._epoch_fn(counts, dev)
+    flat, doc_id = w2v._flatten_corpus(
+        [np.asarray([w2v.dictionary.word2id[t] for t in d], np.int32)
+         for d in docs[:2000]])
+    bp = w2v._block_positions()
+    n = W2V_PROF_BLOCKS * bp
+    d_flat, d_doc = w2v._device_corpus(flat[:n], doc_id[:n], dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prof = profile_steps(torch, lambda i: epoch(
+        d_flat, d_doc, 0.025, 0.02, w2v._draws(gen, i, 0, n)),
+        "item2vec-profile", steps=2)
+    blocks_ms = prof["wall_ms"] / W2V_PROF_BLOCKS
+
+    err = check_w2v_card_vs_cpu(torch, dev)
+    emb = store.embedding_map_from_model(w2v)
+    check_searcher(torch, dev, emb)
+    buf = io.StringIO()
+    store.save_embedding_map(buf, emb)
+    buf.seek(0)
+    back = store.load_embedding_map(buf)
+    require(list(back) == list(emb) and all(
+        np.array_equal(back[w], emb[w]) for w in emb),
+        "item2vec text round trip changed the map")
+    log(f"[item2vec] text round trip of {len(emb)} × {emb.dim} exact "
+        f"({len(buf.getvalue()) / 1e6:.2f} MB); profiled slice "
+        f"{W2V_PROF_BLOCKS} blocks of {bp}: {blocks_ms:.4f} ms a block, "
+        f"device busy {prof['busy_ms'] / W2V_PROF_BLOCKS:.4f} ms a block "
+        f"(idle share {max(0.0, 1 - prof['busy_ms'] / prof['wall_ms']):.3f});"
+        f" phase {time.perf_counter() - t_phase:.1f} s")
+    del w2v, epoch, d_flat, d_doc
+    torch.cuda.empty_cache()
+    return {"words_per_s_a": rate_a, "pairs_per_s_a": pairs_a,
+            "words_per_s_b": rate_b, "purity": purity, "peak_gb": peak,
+            "idle": max(0.0, 1 - prof["busy_ms"] / prof["wall_ms"]),
+            "card_vs_cpu": err}
+
+
+# ------------------------------------------------------------ phase 11 --
+def make_sales_workload(n, n_eval, seed=0):
+    """Rows of examples/futuresales.py's feature layout (:98-109, 342
+    columns: one-hots of day 31, month 12, year 3, date block 34, shop 60,
+    category 84, weekday 7, a 10-bucket item hash, log2(price), a
+    100-bucket name multihot of 3 tokens) with its planted signal
+    (:45-86: sales ~ Poisson(category effect × shop effect × season ×
+    20 / sqrt(price))) and its target scaling (count / 20). Returns (x,
+    y) for training and held out."""
+    rng = np.random.default_rng(seed)
+    total = n + n_eval
+    n_items, cats_n, shops_n, months_n = 400, 84, 60, 34
+    cats = rng.integers(0, cats_n, n_items)
+    cat_eff = rng.gamma(2.0, 2.0, cats_n)
+    shop_eff = rng.uniform(0.5, 2.0, shops_n)
+    prices = rng.uniform(2.0, 2000.0, n_items)
+    name_tok = rng.integers(0, 100, (n_items, 3))
+    item_hash = rng.integers(0, 10, n_items)
+    items = rng.integers(0, n_items, total)
+    shops = rng.integers(0, shops_n, total)
+    blocks = rng.integers(0, months_n, total)
+    months = blocks % 12
+    season = 1.0 + 0.6 * np.cos(2 * np.pi * (months - 11) / 12.0)
+    lam = (cat_eff[cats[items]] * shop_eff[shops] * season
+           * (20.0 / np.sqrt(prices[items])))
+    y = (rng.poisson(lam) / 20.0).astype(np.float32)
+    x = np.zeros((total, 342), np.float32)
+    rows = np.arange(total)
+    col = 0
+    for width, idx in ((31, rng.integers(0, 28, total)), (12, months),
+                       (3, blocks // 12), (34, blocks), (60, shops),
+                       (84, cats[items]), (7, rng.integers(0, 7, total)),
+                       (10, item_hash[items])):
+        x[rows, col + idx] = 1.0
+        col += width
+    x[:, col] = np.log2(prices[items])
+    col += 1
+    for j in range(3):
+        x[rows, col + name_tok[items, j]] = 1.0
+    return x[:n], y[:n], x[n:], y[n:]
+
+
+def fit_timed(torch, model, x, y, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(x, y, **kw)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def check_mlp_card_vs_cpu(torch, dev):
+    """Small f32 models trained on the card and on the CPU from the same
+    parameters: the classifier with adam, lbfgs, bfgs and cg, the
+    regressor (adam) and Neural; loss curves within MLP_LOSS_RTOL and
+    parameters within TRAJ_TABLE_RTOL / TRAJ_TABLE_ATOL (lbfgs: its first
+    MLP_LBFGS_TIGHT iterations; its line search branches on f32
+    comparisons). Control: the card's classifier with one weight row
+    written as the next row's."""
+    from goctr_tpu_torch.models.mlp_classifier import MLPClassifier
+    from goctr_tpu_torch.models.mlp_regressor import MLPRegressor
+    from goctr_tpu_torch.models.neural import Neural, NeuralConfig
+
+    rng = np.random.default_rng(SEED + 11)
+    X = rng.normal(size=(1000, 12)).astype(np.float32)
+    s = X[:, 0] + X[:, 1] ** 2 - 0.5 * X[:, 2]
+    yc, yr = (s > 1).astype(np.int64), s.astype(np.float32)
+    worst, ctl = [0.0, 0.0], None
+    cases = [(MLPClassifier, yc, dict(solver=sv)) for sv in
+             ("adam", "lbfgs", "bfgs", "cg")] + [(MLPRegressor, yr, {})]
+    for cls, y, kw in cases:
+        kw = dict(dict(hidden_layer_sizes=(16, 8), batch_size=100,
+                       max_iter=6, shuffle=False, tol=0.0), **kw)
+        init = cls(**kw, device="cpu").init_params(12, 1)
+        out = {str(d): cls(**kw, device=d).fit(X, y, init=init)
+               for d in ("cpu", dev)}
+        c, g = out["cpu"], out[str(dev)]
+        n = MLP_LBFGS_TIGHT if kw.get("solver") == "lbfgs" else None
+        lc = np.abs(np.array(g.loss_curve_[:n]) - c.loss_curve_[:n]) / \
+            np.abs(c.loss_curve_[:n])
+        worst[0] = max(worst[0], float(lc.max()))
+        what = f"small {cls.__name__} {kw.get('solver', 'adam')}"
+        require(lc.max() <= MLP_LOSS_RTOL,
+                f"{what}: loss curves differ by {lc.max():.3g}")
+        if n is None:
+            for a, b in zip(g.coefs_ + g.intercepts_,
+                            c.coefs_ + c.intercepts_):
+                bad, err = within(torch, torch.from_numpy(a),
+                                  torch.from_numpy(b), TRAJ_TABLE_RTOL,
+                                  TRAJ_TABLE_ATOL)
+                worst[1] = max(worst[1], err)
+                require(bad == 0, f"{what}: {bad} parameters outside")
+        if ctl is None:
+            wrong = g.coefs_[0].copy()
+            wrong[0] = wrong[1]
+            ctl = within(torch, torch.from_numpy(wrong), torch.from_numpy(
+                c.coefs_[0]), TRAJ_TABLE_RTOL, TRAJ_TABLE_ATOL)
+            require(ctl[0] > 0, f"small MLP control reads {ctl[1]}")
+    cfg = NeuralConfig(inputs=12, layout=(16, 8, 1), activation="sigmoid",
+                       mode="regression", loss="mse")
+    curves = {str(d): Neural(cfg, seed=SEED, device=d).train(
+        X, 1 / (1 + np.exp(-yr[:, None])), lr=0.05, epochs=2, batch_size=64,
+        seed=1) for d in ("cpu", dev)}
+    lc = np.abs(np.array(curves[str(dev)]) - curves["cpu"]) / np.abs(
+        curves["cpu"])
+    worst[0] = max(worst[0], float(lc.max()))
+    require(lc.max() <= MLP_LOSS_RTOL, f"small Neural: {lc.max():.3g}")
+    log(f"[mlp] small f32 models card vs CPU (classifier adam, lbfgs "
+        f"(first {MLP_LBFGS_TIGHT} iterations), bfgs, cg; regressor; "
+        f"Neural): max loss rel diff {worst[0]:.3g} (rtol {MLP_LOSS_RTOL}),"
+        f" max parameter err {worst[1]:.3g} (rtol {TRAJ_TABLE_RTOL}, atol "
+        f"{TRAJ_TABLE_ATOL}); control (a weight row written as the next "
+        f"one's) {ctl[1]:.3g}")
+    return worst
+
+
+def mlp_phase(torch, dev):
+    """Phase 11: the sklearn-style MLPs at full width: the classifier of
+    the reference's main.go:42-47 ((100,), relu, adam, alpha 1e-5) on
+    phase 9's 281-column planted rows, one epoch of sgd with Nesterov,
+    full-batch lbfgs, bfgs and cg, the regressor and Neural at
+    examples/futuresales.py's layouts and 342 columns, and small models
+    card vs CPU. Returns the readings."""
+    from goctr_tpu_torch.core.metrics import r2_score, roc_auc_score
+    from goctr_tpu_torch.models.mlp_classifier import MLPClassifier
+    from goctr_tpu_torch.models.mlp_regressor import MLPRegressor
+    from goctr_tpu_torch.models.neural import Neural, NeuralConfig
+
+    t_phase = time.perf_counter()
+    sample, x_ev, y_ev, _, _ = make_dense_workload(
+        MLP_ROWS, MLP_EVAL_ROWS, seed=SEED + 12)
+    x, y = sample.x, sample.y.astype(np.int64)
+    readings = {}
+    steps = -(-MLP_ROWS // 200)
+    clf, secs = fit_timed(torch, MLPClassifier(
+        (100,), "relu", "adam", alpha=1e-5, max_iter=MLP_EPOCHS,
+        random_state=SEED, device=dev), x, y)
+    auc = roc_auc_score(y_ev, clf.predict_proba(x_ev)[:, 1])
+    lc = clf.loss_curve_
+    require(all(np.isfinite(lc)) and lc[-1] < lc[0],
+            f"MLPClassifier adam: the loss does not fall {lc}")
+    require(auc > MLP_AUC_MIN, f"MLPClassifier held-out AUC {auc}")
+    readings["adam"] = dict(ex_s=MLP_ROWS * MLP_EPOCHS / secs,
+                            step_ms=secs / (steps * MLP_EPOCHS) * 1e3,
+                            auc=auc)
+    sgd, secs = fit_timed(torch, MLPClassifier(
+        (100,), "relu", "sgd", alpha=1e-5, max_iter=1, random_state=SEED,
+        nesterovs_momentum=True, device=dev), x, y)
+    readings["sgd"] = dict(ex_s=MLP_ROWS / secs, step_ms=secs / steps * 1e3,
+                           loss=sgd.loss_curve_[0])
+    log(f"[mlp] MLPClassifier((100,), relu, adam, alpha 1e-5) on "
+        f"{MLP_ROWS} × {x.shape[1]} rows, batch 200 ({steps} steps), "
+        f"{MLP_EPOCHS} epochs: loss {lc}, {readings['adam']['ex_s']:.1f} "
+        f"ex/s, {readings['adam']['step_ms']:.4f} ms a step (the whole fit),"
+        f" held-out AUC {auc:.6f} on {MLP_EVAL_ROWS} rows (limit "
+        f"{MLP_AUC_MIN}); sgd + Nesterov one epoch: loss "
+        f"{sgd.loss_curve_[0]:.6f}, {readings['sgd']['ex_s']:.1f} ex/s")
+    for solver in ("lbfgs", "bfgs", "cg"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        m, secs = fit_timed(torch, MLPClassifier(
+            (100,), "relu", solver, alpha=1e-5, max_iter=MLP_FULLBATCH_ITERS,
+            tol=0.0, random_state=SEED, device=dev), x, y)
+        peak = torch.cuda.max_memory_allocated() / 1e9 - held
+        lc = m.loss_curve_
+        require(all(np.isfinite(lc)) and lc[-1] < lc[0],
+                f"MLPClassifier {solver}: the loss does not fall {lc}")
+        auc = roc_auc_score(y_ev, m.predict_proba(x_ev)[:, 1])
+        readings[solver] = dict(s_iter=secs / m.n_iter_, peak_gb=peak,
+                                auc=auc, loss=lc)
+        log(f"[mlp] {solver} full batch ({MLP_ROWS} rows, "
+            f"{sum(w.size for w in m.coefs_ + m.intercepts_)} parameters): "
+            f"{m.n_iter_} iterations, {secs / m.n_iter_:.4f} s an "
+            f"iteration, loss {[round(v, 6) for v in lc]}, held-out AUC "
+            f"{auc:.6f}, peak device memory {peak:.3f} GB above {held:.2f}")
+    xs, ys, xs_ev, ys_ev = make_sales_workload(SALES_ROWS, SALES_EVAL_ROWS,
+                                               seed=SEED + 13)
+    reg, secs = fit_timed(torch, MLPRegressor(
+        (64, 64), "relu", "adam", batch_size=256, max_iter=SALES_EPOCHS,
+        random_state=SEED, device=dev), xs, ys)
+    r2_reg = r2_score(ys_ev, reg.predict(xs_ev))
+    readings["regressor"] = dict(ex_s=SALES_ROWS * SALES_EPOCHS / secs,
+                                 r2=r2_reg)
+    net = Neural(NeuralConfig(inputs=xs.shape[1], layout=(64, 64, 1),
+                              activation="sigmoid", mode="regression",
+                              loss="mse"), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    curve = net.train(xs, ys, lr=0.05, epochs=SALES_EPOCHS, batch_size=64)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r2_net = r2_score(ys_ev, net.predict(xs_ev)[:, 0])
+    readings["neural"] = dict(ex_s=SALES_ROWS * SALES_EPOCHS / secs,
+                              r2=r2_net)
+    require(r2_reg > 0 and r2_net > 0,
+            f"R² must exceed 0: regressor {r2_reg}, Neural {r2_net}")
+    log(f"[mlp] futuresales layout ({SALES_ROWS} × {xs.shape[1]}, "
+        f"{SALES_EPOCHS} epochs, held-out {SALES_EVAL_ROWS}): MLPRegressor "
+        f"(64, 64) adam batch 256: loss {reg.loss_curve_}, "
+        f"{readings['regressor']['ex_s']:.1f} ex/s, R² {r2_reg:.6f}; Neural "
+        f"[342, 64, 64, 1] sigmoid mse lr 0.05 batch 64: loss {curve}, "
+        f"{readings['neural']['ex_s']:.1f} ex/s, R² {r2_net:.6f}")
+    readings["card_vs_cpu"] = check_mlp_card_vs_cpu(torch, dev)
+    log(f"[mlp] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -3116,6 +3636,10 @@ def main() -> int:
 
     # 9. the dense rankers --------------------------------------------------
     dense_entries, _ = dense_phase(torch, dev)
+
+    # 10. item2vec; 11. the sklearn-style MLPs (no kernel on their path) ----
+    w2v = item2vec_phase(torch, dev)
+    mlp = mlp_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -3184,8 +3708,11 @@ def main() -> int:
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "
         f"{min(ctl.values()):.3g}, grouped {min(g_ctl.values()):.3g}; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"GB since phase 9's last dense run; total "
+        f"item2vec words/s {w2v['words_per_s_a']:.1f} (run A), "
+        f"{w2v['words_per_s_b']:.1f} (run B), purity {w2v['purity']:.4f}; "
+        f"MLP held-out AUC {mlp['adam']['auc']:.4f}, s an iteration lbfgs "
+        f"{mlp['lbfgs']['s_iter']:.4f}, bfgs {mlp['bfgs']['s_iter']:.4f}, "
+        f"cg {mlp['cg']['s_iter']:.4f}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

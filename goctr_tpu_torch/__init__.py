@@ -11,7 +11,11 @@ Layer map (mirrors goctr_tpu; only the ported slices exist):
   ops/       — activations + the hand kernels (`ops/kernels/`) with their
                plain PyTorch versions and the packed-table layouts
   models/    — shared init helpers, parameter (de)flattening, sparse
-               checkpoints
+               checkpoints, the dense rankers and their trainer, the
+               sklearn-style MLPClassifier / MLPRegressor and Neural
+  optim/     — the minibatch solvers and the full-batch lbfgs, bfgs, cg
+  embedding/ — item2vec: dictionary, Huffman paths, word2vec on the card,
+               the embedding map's text files, search and its console
   parallel/  — SparseCTR (DIN or mean pool + tower), its lookups, the
                scanned trainer and the mesh trainer with their results
                and checkpoints

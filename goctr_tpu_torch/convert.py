@@ -1,5 +1,6 @@
 """Carry the JAX package's parameters and trainer state into the port:
-SparseCTR's, and the dense rankers' (MLPTower, YoutubeDNN, DIN).
+SparseCTR's, the dense rankers' (MLPTower, YoutubeDNN, DIN), a trained
+Word2Vec's, the sklearn-style MLPs' and Neural's.
 
 The input is numpy, as the JAX side hands it over: the dense parameters
 flattened by `goctr_tpu.models.io._flatten_params` (`att0`, `mlp.<i>`,
@@ -13,7 +14,10 @@ resumes from (`train_sparse_scanned(..., resume_from=...)`),
 (`train_sparse(..., resume_from=...)`), and `ranker_from_jax` the
 TrainedRanker of the dense trainer (`train_ranker(..., resume_from=...)`)
 from a JAX TrainedRanker's `_flatten_params(params)` and
-`jax.tree.leaves(opt_state)`.
+`jax.tree.leaves(opt_state)`. `word2vec_from_jax`, `mlp_from_jax` and
+`neural_from_jax` build trained port models from a JAX Word2Vec's tables
+and dictionary, an MLPClassifier's or MLPRegressor's fitted attributes,
+and a Neural's weights and config.
 """
 from __future__ import annotations
 
@@ -22,8 +26,13 @@ import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
 from goctr_tpu_torch.core.meshes import single_device_mesh
+from goctr_tpu_torch.embedding.dictionary import Dictionary
+from goctr_tpu_torch.embedding.word2vec import Word2Vec, Word2VecOptions
 from goctr_tpu_torch.models.base import SampleInfo
 from goctr_tpu_torch.models.io import _unflatten_params
+from goctr_tpu_torch.models.mlp_classifier import MLPClassifier
+from goctr_tpu_torch.models.mlp_regressor import MLPRegressor
+from goctr_tpu_torch.models.neural import Neural, NeuralConfig
 from goctr_tpu_torch.models.trainer import TrainedRanker, _params_on
 from goctr_tpu_torch.ops.kernels.row_optimizer import LANES, group_size
 from goctr_tpu_torch.parallel.scanned import TrainedScanned
@@ -140,3 +149,51 @@ def ranker_from_jax(model, flat_params: dict[str, np.ndarray],
     return TrainedRanker(model=model, params=params, info=info,
                          behavior_len=behavior_len,
                          loss_curve=list(loss_curve or []), opt_state=state)
+
+
+def word2vec_from_jax(w_in: np.ndarray, w_out: np.ndarray,
+                      id2word: list, counts, opts: dict,
+                      device: str | torch.device = "cuda") -> Word2Vec:
+    """A trained port Word2Vec from a JAX Word2Vec's `w_in`, `w_out`,
+    `dictionary.id2word` and `dictionary.counts`, and its options as a
+    dict (`dataclasses.asdict(model.opts)`). HS models get their Huffman
+    paths rebuilt from the counts, as training builds them."""
+    d = Dictionary()
+    d.id2word = list(id2word)
+    d.word2id = {w: i for i, w in enumerate(d.id2word)}
+    d.counts = [int(c) for c in counts]
+    model = Word2Vec(Word2VecOptions(**opts), device=device)
+    model.dictionary = d
+    model._init_state(d.counts_array(), np.random.default_rng(0))
+    model.w_in = np.array(w_in, np.float32)
+    model.w_out = np.array(w_out, np.float32)
+    return model
+
+
+def mlp_from_jax(coefs: list[np.ndarray], intercepts: list[np.ndarray],
+                 out_activation: str, classes=None,
+                 device: str | torch.device = "cuda", **params):
+    """A fitted port MLPClassifier, or MLPRegressor when `out_activation`
+    is "identity", from a JAX model's `coefs_`, `intercepts_`,
+    `out_activation_` and `classes_` (classifiers); `params` are its
+    constructor arguments (`get_params()`)."""
+    cls = MLPRegressor if out_activation == "identity" else MLPClassifier
+    m = cls(**params, device=device)
+    m.coefs_ = [np.array(w, np.float32) for w in coefs]
+    m.intercepts_ = [np.array(b, np.float32) for b in intercepts]
+    m.out_activation_ = out_activation
+    if cls is MLPClassifier:
+        m.classes_ = np.asarray(classes)
+    m._multiclass = out_activation == "softmax"
+    return m
+
+
+def neural_from_jax(weights: list[np.ndarray], biases: list[np.ndarray],
+                    config: dict, device: str | torch.device = "cuda"
+                    ) -> Neural:
+    """A port Neural from a JAX Neural's `weights`, `biases` and config
+    (`dataclasses.asdict(net.config)`)."""
+    net = Neural(NeuralConfig(**config), device=device)
+    net.weights = [np.array(w, np.float32) for w in weights]
+    net.biases = [np.array(b, np.float32) for b in biases]
+    return net

@@ -610,3 +610,102 @@ def test_streaming_trainer_on_the_card(cuda):
     np.testing.assert_allclose(one.loss_curve, res.loss_curve, rtol=1e-6)
     for a, b in zip(param_leaves(one.params), param_leaves(res.params)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def _same_draws_w2v(source):
+    """A Word2Vec whose draws come from a generator on `source` and are
+    moved to the model's device: the card and the CPU train on the same
+    draws."""
+    from goctr_tpu_torch.embedding.word2vec import EpochDraws, Word2Vec
+
+    class SameDraws(Word2Vec):
+        def _draws(self, gen, it, chunk, n):
+            dev = torch.device(self.device)
+            g = torch.Generator(device=source).manual_seed(
+                self.opts.seed * 1000 + it)
+            d = Word2Vec._draws(self, g, it, chunk, n)
+            neg = d.negatives
+            return EpochDraws(d.uniform.to(dev), d.radius.to(dev),
+                              None if neg is None else
+                              (lambda b: neg(b).to(dev)))
+    return SameDraws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["skipgram", "cbow"])
+@pytest.mark.parametrize("opt", ["hs", "ns"])
+def test_word2vec_on_the_card_matches_the_cpu(cuda, model, opt):
+    """The item2vec epoch (no kernel: torch gathers, bmm, index_add_) on
+    the card and on the CPU from the same draws: index_add_'s atomics and
+    cuBLAS sum in other orders — tables within atol 1e-5, rtol 1e-4 after
+    2 iterations, pair counts equal."""
+    rng = np.random.default_rng(11)
+    docs = [[f"w{c * 30 + i}" for i in rng.integers(0, 30, rng.integers(
+        3, 60))] for c in rng.integers(0, 5, 500)]
+    kw = dict(dim=16, window=5, iters=2, min_count=1, batch_size=2048,
+              seed=2, model=model, optimizer=opt)
+    cls = _same_draws_w2v("cpu")
+    c = cls(**kw, device="cpu").train(docs)
+    g = cls(**kw, device=cuda).train(docs)
+    assert g.words_trained == c.words_trained
+    np.testing.assert_allclose(g.w_in, c.w_in, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(g.w_out, c.w_out, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_searcher_on_the_card_matches_the_cpu(cuda):
+    """One f32 product each (TF32 off): similarities within 1e-6, the
+    same words in the same order (ties in index order on both)."""
+    from goctr_tpu_torch.embedding.search import Searcher
+
+    rng = np.random.default_rng(12)
+    emb = {f"i{k}": rng.normal(size=16).astype(np.float32)
+           for k in range(2000)}
+    q = rng.normal(size=(64, 16)).astype(np.float32)
+    for a, b in zip(Searcher(emb, device="cpu").search_vec(q, 10),
+                    Searcher(emb, device=cuda).search_vec(q, 10)):
+        assert [w for w, _ in a] == [w for w, _ in b]
+        np.testing.assert_allclose([s for _, s in b], [s for _, s in a],
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["adam", "sgd", "lbfgs", "bfgs", "cg"])
+def test_mlp_classifier_on_the_card_matches_the_cpu(cuda, solver):
+    """From the same parameters, f32 sums in other orders: loss curves
+    within rtol 1e-5 (lbfgs: its first 4 iterations; its zoom line search
+    branches on f32 comparisons), parameters within atol 1e-5, rtol 1e-4
+    (not lbfgs)."""
+    from goctr_tpu_torch.models.mlp_classifier import MLPClassifier
+
+    rng = np.random.default_rng(13)
+    X = rng.normal(size=(700, 9)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] ** 2 > 1).astype(np.int64)
+    kw = dict(hidden_layer_sizes=(12, 6), solver=solver, batch_size=64,
+              max_iter=6, shuffle=False, tol=0.0, learning_rate_init=0.01)
+    init = MLPClassifier(**kw, device="cpu").init_params(9, 1)
+    c = MLPClassifier(**kw, device="cpu").fit(X, y, init=init)
+    g = MLPClassifier(**kw, device=cuda).fit(X, y, init=init)
+    n = 4 if solver == "lbfgs" else None
+    np.testing.assert_allclose(g.loss_curve_[:n], c.loss_curve_[:n],
+                               rtol=1e-5)
+    if n is None:
+        for a, b in zip(g.coefs_ + g.intercepts_, c.coefs_ + c.intercepts_):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_neural_on_the_card_matches_the_cpu(cuda):
+    from goctr_tpu_torch.models.neural import Neural, NeuralConfig
+
+    rng = np.random.default_rng(14)
+    X = rng.random((600, 8)).astype(np.float32)
+    y = X[:, :1] * X[:, 1:2]
+    cfg = NeuralConfig(inputs=8, layout=(10, 1), activation="sigmoid",
+                       loss="mse")
+    nets = [Neural(cfg, seed=1, device=d) for d in ("cpu", cuda)]
+    curves = [n.train(X, y, lr=0.1, epochs=2, batch_size=50, seed=3)
+              for n in nets]
+    np.testing.assert_allclose(curves[1], curves[0], rtol=1e-5)
+    np.testing.assert_allclose(nets[1].predict(X), nets[0].predict(X),
+                               atol=1e-6, rtol=1e-5)

@@ -411,5 +411,11 @@ def test_solver_matches_optax(name, kw, schedule):
 
 
 def test_lbfgs_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_solver("lbfgs")
+    """lbfgs came with the sklearn-style MLPs' slice: make_solver returns
+    the full-batch LBFGS (held to optax.lbfgs in tests/test_torch_mlp.py),
+    whose state has optax's 7 + 5k leaves for k parameter leaves."""
+    from goctr_tpu_torch.optim.optimizers import LBFGS
+
+    solver = make_solver("lbfgs")
+    assert isinstance(solver, LBFGS)
+    assert len(solver.init([torch.zeros(3), torch.zeros(2, 2)])) == 17
