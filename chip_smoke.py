@@ -127,19 +127,41 @@ Phases, in order; any failure raises and the script exits nonzero:
                layouts on 65,536 rows of its planted sales signal, R² > 0;
                small models card vs CPU with a control. No kernel lies
                on this path.
+ 12. pipeline — the product path of goctr_tpu_torch/main.py: a fixture
+               database made by the port at MovieLens-1M's user and movie
+               counts (6,040 × 3,706) with 100,000 ratings, seed 7 (~80k
+               training rows of 281 columns); main.py's configuration
+               (Config() defaults: MLP (100,) relu, adam, batch 200, 20
+               epochs, bf16) through Train on the card — seconds of
+               pre_train, item2vec, assembly and the fit, peak memory,
+               held-out AUC (> 0.75) and GAUC of BatchPredict over
+               ratings_test, card vs CPU scores with a control; the same
+               pipeline with DIN "pallas" for 3 epochs, the main path of K2
+               (fit forward, BatchPredict, Rank) and K2b (fit backward):
+               counts reset just before and read just after, K2 held
+               against its plain version on the Rank path's own inputs and
+               K2/K2b on the fit's first step, with controls, and timed;
+               RecApiServer on the MLP predictor (no rank_direct: Rank)
+               answering 16 concurrent clients × 25 requests of 100
+               candidates (p50/p99), the dashboard's endpoints and page, a
+               BatchPredict of 100 candidates broken down (SQL fetch,
+               assembly, copies, device time, idle share); and
+               `python -m goctr_tpu_torch.main` as a subprocess until it
+               answers one POST.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
 JSON line (the ten kernels; K1 at the serving shape, at the headline and
 grouped forward gathers and at the row-update read; K2 at the serving
 and at the headline training shape; K2 and K2b at the dense DIN's
-shape) and, last,
+shape and at the pipeline DIN's) and, last,
 {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import re
@@ -2588,13 +2610,14 @@ def dense_cfg(l2):
 
 def dense_first_step(torch, model, sample, cfg, dev):
     """The DIN "pallas" run's first step rebuilt with the trainer's own
-    functions: the first epoch's first batch (f16 storage upcast), the
+    functions: the first epoch's first batch (cfg.store_dtype upcast), the
     fresh parameters, K2's inputs (behaviors and item contiguous in bf16,
     att0 rounded to bf16, mask all ones) and K2b's: the tower's gradient
     of the pooled rows under the first step's dropout masks."""
     from goctr_tpu_torch.models.base import split_blocks
     from goctr_tpu_torch.models.mlp_tower import tower
-    from goctr_tpu_torch.models.trainer import run_generators, upload_rows
+    from goctr_tpu_torch.models.trainer import (
+        run_generators, torch_store_dtype, upload_rows)
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.losses import bce_loss
 
@@ -2606,7 +2629,8 @@ def dense_first_step(torch, model, sample, cfg, dev):
     real = idx_h < n
     xh = np.zeros((bs, sample.x.shape[1]), np.float32)
     xh[real] = sample.x[idx_h[real]]
-    xb = upload_rows(xh, bs, torch.float16, dev).float()
+    xb = upload_rows(xh, bs, torch_store_dtype(cfg.store_dtype),
+                     dev).float()
     yh = np.zeros(bs, np.float32)
     yh[real] = sample.y[idx_h[real]]
     y = torch.from_numpy(yh).to(dev)
@@ -2631,7 +2655,7 @@ def dense_first_step(torch, model, sample, cfg, dev):
             "y": y, "w": w}
 
 
-def check_dense_kernels(torch, step):
+def check_dense_kernels(torch, step, tag="dense-kernels"):
     """K2 and K2b against their plain versions on the dense DIN's first
     step, with the phase-6 limits and controls that must exceed them: a
     zeroed pool (K2) and d_att0 shifted by one position (K2b). Returns
@@ -2668,7 +2692,7 @@ def check_dense_kernels(torch, step):
         torch, torch.roll(got[2], 1), want[2], ATT0_RTOL, a_atol)
     require(ctl["K2b d_att0 shifted"] > 0,
             "dense K2b control: d_att0 shifted by one passes the limit")
-    log(f"[dense-kernels] K2 B,T,D={tuple(beh.shape)} bf16, no mask, vs "
+    log(f"[{tag}] K2 B,T,D={tuple(beh.shape)} bf16, no mask, vs "
         f"plain: max err {errs['K2']:.3g} (tol atol={atol} rtol={rtol}); "
         f"K2b max err d_behaviors {errs['K2b d_behaviors']:.3g}, d_item "
         f"{errs['K2b d_item']:.3g}, d_att0 {errs['K2b d_att0']:.3g} "
@@ -2679,7 +2703,7 @@ def check_dense_kernels(torch, step):
     return errs, ctl
 
 
-def time_dense_kernels(torch, step):
+def time_dense_kernels(torch, step, tag="dense-kernels"):
     """Device ms of K2 and K2b and their plain versions on the first
     step's inputs, with their bounds."""
     from goctr_tpu_torch.ops.kernels import din_attention as k2
@@ -2700,7 +2724,7 @@ def time_dense_kernels(torch, step):
                  library_ms=None)
         r["bound_ms"], r["bound_by"] = bound(nb, nf)
         out[key] = r
-        log(f"[dense-kernels] {key} B,T,D=({B}, {T}, {D}) bf16 device ms "
+        log(f"[{tag}] {key} B,T,D=({B}, {T}, {D}) bf16 device ms "
             f"per call: kernel {r['ms']:.5f}, plain {r['plain_ms']:.5f}, "
             f"bound {r['bound_ms']:.5f} ({nb} B, {nf} flop, "
             f"{r['bound_by']})")
@@ -3443,6 +3467,547 @@ def mlp_phase(torch, dev):
     return readings
 
 
+# ------------------------------------------------------------ phase 12 --
+# phase 12, the product path of goctr_tpu_torch/main.py: a database made by
+# the port's fixture generator at MovieLens-1M's user and movie counts
+# (6,040 × 3,706) with 100,000 ratings, seed 7 (~80k training rows, which
+# fill main.py's sample_cnt=80000); rows of 281 columns, phase 9's ML-20M
+# layout (52 user, 10 × 16 behaviors, 16 item embedding, 53 item features)
+PIPE_FIXTURE = dict(n_users=6040, n_movies=3706, n_ratings=100_000, seed=7)
+PIPE_SAMPLE_CNT = 80_000
+PIPE_DIN_EPOCHS = 3
+# held-out AUC of main.py's MLP over ratings_test (the JAX package's bar on
+# its 200-user test fixture is 0.8811 ± 0.02, tests/test_movielens.py)
+PIPE_AUC_MIN = 0.75
+PIPE_CLIENTS, PIPE_REQUESTS, PIPE_CANDS = 16, 25, 100
+PIPE_CARD_VS_CPU_ROWS = 4096
+PIPE_PROFILED_CALLS = 5
+PIPE_CONTROL_SHIFT = 0.05          # added to the output bias (control)
+PIPE_CLI_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def timed_calls(torch, *targets):
+    """Within the block, each call of getattr(obj, name) for (obj, name)
+    in targets is timed to its end (a device sync after it): yields
+    {"s": seconds summed by name, "out": the last result by name}."""
+    from unittest import mock
+
+    rec = {"s": {}, "out": {}}
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec["s"][name] = rec["s"].get(name, 0.0) + time.perf_counter() - t0
+            rec["out"][name] = out
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for obj, name in targets:
+            stack.enter_context(mock.patch.object(
+                obj, name, wrap(name, getattr(obj, name))))
+        yield rec
+
+
+def post_json(url, body, timeout=60):
+    """(status, parsed body) of a JSON POST; 4xx/5xx answers included."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def get_url(url, timeout=60):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        require(resp.status == 200, f"GET {url}: {resp.status}")
+        return resp.read()
+
+
+def main_trainer_config(cfg):
+    """The TrainerConfig goctr_tpu_torch/main.py builds from a Config."""
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+
+    return TrainerConfig(
+        batch_size=cfg.optim.batch_size, epochs=cfg.optim.max_iter,
+        early_stop=cfg.optim.early_stop_patience, solver=cfg.optim.solver,
+        lr=cfg.optim.lr, lr_schedule=cfg.optim.lr_schedule,
+        l2=cfg.optim.alpha, weight_decay=cfg.optim.weight_decay,
+        seed=cfg.seed, verbose=cfg.verbose)
+
+
+def pipeline_train(torch, dev, db, name, tc, use_bf16, model_kw, tag):
+    """Train(..., device=dev) on MovielensRec(db), each stage timed:
+    pre_train, item2vec (the item-sequence SQL read included), sample
+    assembly and the fit; peak device memory above what was held before.
+    Returns (predictor, the assembled sample, readings)."""
+    from goctr_tpu_torch.data.movielens import MovielensRec
+    from goctr_tpu_torch.recommend import rcmd
+
+    rec = MovielensRec(db, sample_cnt=PIPE_SAMPLE_CNT)
+    fitter = rcmd.RankerFitter(name, tc, use_bf16=use_bf16, device=dev,
+                               **model_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    with timed_calls(torch, (rec, "pre_train"), (rcmd, "train_embedding"),
+                     (rcmd, "get_sample"), (fitter, "fit")) as t:
+        t0 = time.perf_counter()
+        pred = rcmd.Train(rcmd.Context(), rec, fitter, device=dev)
+        total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 - held
+    sample, r, s = t["out"]["get_sample"], pred.model, t["s"]
+    require(sample.x.shape[1] == ml20m_info().width,
+            f"{tag}: assembled rows have {sample.x.shape[1]} columns")
+    lc = r.loss_curve
+    require(all(np.isfinite(lc)) and lc[-1] < lc[0],
+            f"{tag}: the loss does not fall {lc}")
+    steps = -(-sample.rows // tc.batch_size)
+    later = r.epoch_times[1:]
+    out = {"rows": sample.rows, "total_s": total, "peak_gb": peak,
+           "pre_train_s": s["pre_train"], "item2vec_s": s["train_embedding"],
+           "words": len(pred.item_embedding_map),
+           "assembly_s": s["get_sample"],
+           "assembly_rows_per_s": sample.rows / s["get_sample"],
+           "fit_s": s["fit"], "epochs": len(lc),
+           "fit_ex_per_s": sample.rows * len(later) / sum(later),
+           "step_ms": sum(later) / (steps * len(later)) * 1e3}
+    log(f"[{tag}] Train on {db.rsplit('/', 1)[-1]}: {out['rows']} rows × "
+        f"{sample.x.shape[1]} columns, positive rate {sample.y.mean():.4f};"
+        f" s: pre_train {out['pre_train_s']:.3f}, item2vec "
+        f"{out['item2vec_s']:.3f} ({out['words']} words), assembly "
+        f"{out['assembly_s']:.3f} ({out['assembly_rows_per_s']:.1f} rows/s),"
+        f" fit {out['fit_s']:.3f} ({out['epochs']} epochs of {steps} steps: "
+        f"{out['fit_ex_per_s']:.1f} ex/s, {out['step_ms']:.4f} ms a step "
+        f"over epochs 2-), Train {total:.3f}; loss curve "
+        f"{[round(x, 6) for x in lc]}; peak device memory {peak:.3f} GB "
+        f"above the {held:.3f} GB earlier phases hold")
+    return pred, sample, out
+
+
+def pipeline_eval(pred, test, tag):
+    """Held-out AUC and GAUC of BatchPredict over the test samples."""
+    from goctr_tpu_torch.core.metrics import gauc, roc_auc_score
+    from goctr_tpu_torch.recommend import rcmd
+
+    t0 = time.perf_counter()
+    scores = rcmd.BatchPredict(rcmd.Context(), pred, test)
+    dt = time.perf_counter() - t0
+    y = np.asarray([k.label for k in test], np.float32)
+    users = np.asarray([k.user_id for k in test])
+    require(scores.shape == y.shape and np.isfinite(scores).all(),
+            f"{tag}: BatchPredict scores {scores.shape}, finite "
+            f"{np.isfinite(scores).all()}")
+    auc, g = roc_auc_score(y, scores), gauc(y, scores, users)
+    log(f"[{tag}] held-out BatchPredict over ratings_test: {len(test)} rows "
+        f"of {len(np.unique(users))} users in {dt:.3f} s; AUC {auc:.6f}, "
+        f"GAUC {g:.6f}")
+    return scores, auc, g
+
+
+def pipeline_card_vs_cpu(torch, pred, test):
+    """The card's BatchPredict scores against the same parameters' on the
+    CPU (same keys, same features), within phase 9's bf16 limit; a control
+    with the output bias shifted by PIPE_CONTROL_SHIFT must exceed it."""
+    import dataclasses
+
+    from goctr_tpu_torch.models.trainer import _params_on
+    from goctr_tpu_torch.recommend import rcmd
+
+    keys = test[:PIPE_CARD_VS_CPU_ROWS]
+    r = pred.model
+    cpu_params = _params_on(r.params, torch.device("cpu"))
+    ctl_params = _params_on(cpu_params, torch.device("cpu"))
+    ctl_params["bias"][-1] += PIPE_CONTROL_SHIFT
+    got = rcmd.BatchPredict(rcmd.Context(), pred, keys)
+    atol, rtol = TOL["bfloat16"]
+    out = {}
+    for what, params in (("cpu", cpu_params), ("control", ctl_params)):
+        on_cpu = dataclasses.replace(pred, model=dataclasses.replace(
+            r, params=params, opt_state=None))
+        want = rcmd.BatchPredict(rcmd.Context(), on_cpu, keys)
+        diff = np.abs(got - want)
+        out[what] = (int((diff > atol + rtol * np.abs(want)).sum()),
+                     float(diff.max()))
+    require(out["cpu"][0] == 0,
+            f"pipeline card vs CPU: {out['cpu'][0]} scores outside atol "
+            f"{atol} + rtol {rtol} (max diff {out['cpu'][1]:.3g})")
+    require(out["control"][0] > 0, "pipeline card vs CPU control: the "
+                                   "shifted output bias passes the limit")
+    log(f"[pipeline] card vs CPU BatchPredict, same parameters, "
+        f"{len(keys)} held-out rows, bf16: max diff {out['cpu'][1]:.3g} "
+        f"(atol {atol} + rtol {rtol}); control (output bias + "
+        f"{PIPE_CONTROL_SHIFT}): {out['control'][0]} scores outside, max "
+        f"diff {out['control'][1]:.3g}")
+    return out["cpu"][1]
+
+
+def rank_pool_inputs(torch, pred, user, items):
+    """K2's inputs on the Rank path: the rows BatchPredict assembles for
+    one user's candidates, padded to predict's bucket, split and cast as
+    DIN "pallas" passes them to the pool."""
+    from goctr_tpu_torch.models.base import split_blocks
+    from goctr_tpu_torch.models.trainer import _bucket
+    from goctr_tpu_torch.recommend import rcmd
+
+    r = pred.model
+    ctx = rcmd.Context(rcmd.Stage.PREDICT)
+    n = len(items)
+    x = rcmd._assemble_batch(ctx, pred.state, pred.rec_sys,
+                             np.full(n, user, np.int64),
+                             np.asarray(items, np.int64),
+                             np.full(n, int(time.time()), np.int64))
+    chunk = np.zeros((_bucket(n), x.shape[1]), np.float32)
+    chunk[:n] = x
+    _, beh, item, _ = split_blocks(torch.from_numpy(chunk).to(r.device),
+                                   r.info, r.behavior_len)
+    cd = r.model.compute_dtype
+    return (beh.to(cd).contiguous(), item.to(cd).contiguous(),
+            r.params["att0"].to(cd).float(),
+            torch.ones(beh.shape[:2], device=r.device))
+
+
+def pipeline_http(torch, pred, test_users, n_items):
+    """RecApiServer on `pred` (no rank_direct: the Rank path) answering
+    PIPE_CLIENTS concurrent clients × PIPE_REQUESTS requests of PIPE_CANDS
+    candidates; the dashboard's endpoints and page. Returns latencies."""
+    from goctr_tpu_torch.recommend import rcmd
+    from goctr_tpu_torch.serve.api import RecApiServer
+
+    rng = np.random.default_rng(SEED + 12)
+    reqs = [(int(rng.choice(test_users)), [int(i) for i in rng.choice(
+        np.arange(1, n_items + 1), PIPE_CANDS, replace=False)])
+        for _ in range(PIPE_CLIENTS * PIPE_REQUESTS)]
+    srv = RecApiServer(pred, host="127.0.0.1", port=0).start(background=True)
+    base = f"http://127.0.0.1:{srv.port}"
+    url = f"{base}/api/v1/recommend"
+    lat, bad = [], []
+
+    def client(c):
+        for u, items in reqs[c * PIPE_REQUESTS:(c + 1) * PIPE_REQUESTS]:
+            t0 = time.perf_counter()
+            try:
+                status, out = post_json(url, {"userId": u,
+                                              "itemIdList": items})
+            except OSError as e:
+                bad.append(repr(e))
+                continue
+            lat.append(time.perf_counter() - t0)
+            lst = out.get("itemScoreList", [])
+            if (status != 200 or [e["itemId"] for e in lst] != items
+                    or not all(0.0 <= e["score"] <= 1.0 for e in lst)):
+                bad.append((u, status, str(out)[:200]))
+
+    try:
+        status, first = post_json(url, {"userId": reqs[0][0],
+                                        "itemIdList": reqs[0][1]})
+        require(status == 200, f"pipeline http: first request {status} "
+                               f"{first}")
+        want = [s.score for s in rcmd.Rank(rcmd.Context(), pred, reqs[0][0],
+                                           reqs[0][1])]
+        err = float(np.abs(np.array([e["score"] for e in first[
+            "itemScoreList"]]) - want).max())
+        require(err <= 1e-6, f"pipeline http: scores differ from Rank by "
+                             f"{err:.3g}")
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PIPE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        require(not any(t.is_alive() for t in threads),
+                "pipeline http: a client did not finish")
+        require(not bad and len(lat) == len(reqs),
+                f"pipeline http: {len(bad)} bad answers, e.g. {bad[:2]}")
+        require(post_json(url, {"userId": 10 ** 9, "itemIdList": [1]})
+                == (400, {"error": f"userId {10 ** 9} not found",
+                          "userId": 10 ** 9}),
+                "pipeline http: an unknown user must get 400 naming it")
+        ov = json.loads(get_url(f"{base}/service/overview"))
+        require(ov["users"] == PIPE_FIXTURE["n_users"]
+                and ov["items"] == PIPE_FIXTURE["n_movies"],
+                f"pipeline http: overview {ov}")
+        for kind in ("items", "users"):
+            fd = json.loads(get_url(f"{base}/service/featuredist?kind={kind}"))
+            require(fd["kind"] == kind and fd["sampled"] > 0
+                    and {"avg_rating", "cnt_rating", "genre_active_dims"}
+                    <= {f["feature"] for f in fd["features"]},
+                    f"pipeline http: featuredist {kind}")
+        html = get_url(f"{base}/").decode()
+        require("dashboard" in html.lower() and "#/overview" in html,
+                "pipeline http: / does not serve the dashboard")
+    finally:
+        srv.stop()
+    p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+    log(f"[pipeline-http] {PIPE_CLIENTS} clients × {PIPE_REQUESTS} POST "
+        f"/api/v1/recommend × {PIPE_CANDS} candidates through Rank in "
+        f"{wall:.3f} s ({len(lat) / wall:.1f} requests/s, "
+        f"{len(lat) * PIPE_CANDS / wall:.1f} scores/s): latency p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms, max {max(lat) * 1e3:.3f} ms; "
+        f"first answer equals Rank (max diff {err:.3g}); overview, "
+        f"featuredist, the dashboard and an unknown user's 400 checked")
+    return {"p50_ms": p50, "p99_ms": p99, "rps": len(lat) / wall}
+
+
+def profile_rank(torch, pred, user, items):
+    """Where one BatchPredict of len(items) candidates spends its time:
+    the SQL feature fetch, row assembly and the model's predict (host
+    clock, each call ended by a sync), with cold caches and warm; then
+    PIPE_PROFILED_CALLS warm calls under torch.profiler (taken again if it
+    recorded no device event: it loses events): host-to-device copies,
+    device busy time and the idle share, a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from goctr_tpu_torch.recommend import rcmd
+
+    now = int(time.time())
+    keys = [rcmd.Sample(user_id=user, item_id=i, timestamp=now)
+            for i in items]
+    out = {}
+    for label in ("cold", "warm"):
+        if label == "cold":
+            pred.state.user_cache.clear()
+            pred.state.item_cache.clear()
+        with timed_calls(torch, (rcmd, "_fetch_features_unique"),
+                         (rcmd, "_assemble_rows"), (pred.model, "predict")
+                         ) as t:
+            t0 = time.perf_counter()
+            rcmd.BatchPredict(rcmd.Context(), pred, keys)
+            wall = time.perf_counter() - t0
+        out[label] = dict(wall_ms=wall * 1e3, **{
+            k: v * 1e3 for k, v in t["s"].items()})
+    for _ in range(5):          # a profile that recorded nothing: again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PIPE_PROFILED_CALLS):
+                rcmd.BatchPredict(rcmd.Context(), pred, keys)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / PIPE_PROFILED_CALLS
+        rows = [(us / PIPE_PROFILED_CALLS, count, key)
+                for us, count, key in _device_events(prof)]
+        if rows:
+            break
+    require(bool(rows), "pipeline profile: no device event recorded")
+    busy = sum(r[0] for r in rows)
+    h2d = sum(us for us, _, key in rows if "HtoD" in key)
+    d2h = sum(us for us, _, key in rows if "DtoH" in key)
+    for label, r in out.items():
+        fetch, asm, pr = (r["_fetch_features_unique"], r["_assemble_rows"],
+                          r["predict"])
+        log(f"[pipeline-profile] BatchPredict of {len(items)} candidates, "
+            f"{label} caches: wall {r['wall_ms']:.3f} ms; SQL feature fetch "
+            f"{fetch:.3f}, assembly (native gathers) {asm:.3f}, predict "
+            f"{pr:.3f}, the rest {r['wall_ms'] - fetch - asm - pr:.3f}")
+    log(f"[pipeline-profile] profiled warm calls ({PIPE_PROFILED_CALLS}), "
+        f"each: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.4f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall_us):.4f}): host-to-device copy "
+        f"{h2d / 1e3:.4f}, device-to-host {d2h / 1e3:.4f}, kernels "
+        f"{(busy - h2d - d2h) / 1e3:.4f}")
+    for us, count, key in rows[:10]:
+        log(f"[pipeline-profile]   device {us / 1e3:9.4f} ms a call  "
+            f"x{count // PIPE_PROFILED_CALLS:<3d} {key[:90]}")
+    out["busy_ms"], out["idle"] = busy / 1e3, max(0.0, 1 - busy / wall_us)
+    return out
+
+
+def pipeline_cli(db, user, workdir):
+    """`python -m goctr_tpu_torch.main --data.dsn=db --optim.max_iter=2
+    --serve.port=<free>` as a subprocess: it must answer one POST, then it
+    is stopped. Returns seconds from start to the first answer."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "goctr_tpu_torch.main", f"--data.dsn={db}",
+           "--optim.max_iter=2", f"--serve.port={port}"]
+    log_path = os.path.join(workdir, "cli.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)))
+        try:
+            answer = None
+            while answer is None:
+                if proc.poll() is not None:
+                    with open(log_path) as f:
+                        tail = f.read()[-3000:]
+                    raise RuntimeError(f"check failed: the CLI exited "
+                                       f"{proc.returncode} before serving: "
+                                       f"{tail}")
+                require(time.perf_counter() - t0 < PIPE_CLI_TIMEOUT_S,
+                        f"CLI did not serve within {PIPE_CLI_TIMEOUT_S} s")
+                try:
+                    answer = post_json(f"http://127.0.0.1:{port}/api/v1/"
+                                       f"recommend", {"userId": user,
+                                                      "itemIdList": [1, 2]},
+                                       timeout=30)
+                except (urllib.error.URLError, ConnectionError):
+                    time.sleep(0.5)
+            ready = time.perf_counter() - t0
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    status, out = answer
+    require(status == 200 and len(out["itemScoreList"]) == 2,
+            f"CLI answered {status} {out}")
+    log(f"[pipeline-cli] {' '.join(cmd[1:4])} ... answered POST "
+        f"/api/v1/recommend {ready:.1f} s after start ({out}); stopped")
+    return ready
+
+
+def pipeline_phase(torch, dev):
+    """Phase 12: the product path of goctr_tpu_torch/main.py on the card.
+    A fixture database at PIPE_FIXTURE; (1) main.py's configuration
+    (Config() defaults: MLP (100,) relu, adam 1e-3, batch 200, 20 epochs,
+    early stop 10, alpha 1e-5, seed 42, bf16) through Train on the card:
+    stage seconds, fit rate, peak memory, held-out AUC/GAUC over
+    ratings_test, card vs CPU with a control; (2) the same pipeline with
+    DIN "pallas" for PIPE_DIN_EPOCHS epochs — the main path of K2 (fit
+    forward, BatchPredict, Rank) and K2b (fit backward), counts reset just
+    before and read just after; K2 held against its plain version on the
+    Rank path's own inputs and K2/K2b on the fit's first step, with
+    controls, and timed; (3) HTTP through the Rank path with concurrent
+    clients, the dashboard endpoints and a profiled BatchPredict; (4) the
+    CLI as a subprocess. Returns the kernels-line entries and readings."""
+    import dataclasses
+    import sqlite3
+    import tempfile
+
+    from goctr_tpu_torch.core.config import Config
+    from goctr_tpu_torch.data.fixture import generate_movielens_fixture
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+    from goctr_tpu_torch.recommend import rcmd
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        db = f"{tmp}/movielens.db"
+        t0 = time.perf_counter()
+        generate_movielens_fixture(db, **PIPE_FIXTURE)
+        with sqlite3.connect(db) as conn:
+            n_train = conn.execute(
+                "SELECT count(*) FROM ratings_train").fetchone()[0]
+            test_users = [u for (u,) in conn.execute(
+                "SELECT userId FROM user_feature_test")]
+        log(f"[pipeline] fixture {PIPE_FIXTURE} in "
+            f"{time.perf_counter() - t0:.1f} s: {n_train} ratings_train "
+            f"rows, {len(test_users)} test users")
+
+        # (1) main.py's configuration
+        cfg = Config()
+        tc = main_trainer_config(cfg)
+        mlp, _, r_mlp = pipeline_train(
+            torch, dev, db, cfg.model.name, tc, cfg.model.use_bf16,
+            dict(hidden=tuple(cfg.model.hidden),
+                 activation=cfg.model.activation), "pipeline")
+        test = mlp.rec_sys.test_samples()
+        _, r_mlp["auc"], r_mlp["gauc"] = pipeline_eval(mlp, test, "pipeline")
+        require(r_mlp["auc"] > PIPE_AUC_MIN,
+                f"pipeline MLP held-out AUC {r_mlp['auc']} <= {PIPE_AUC_MIN}")
+        r_mlp["card_vs_cpu"] = pipeline_card_vs_cpu(torch, mlp, test)
+
+        # (2) DIN "pallas": the main path of K2 and K2b
+        counted = (k2.din_attention_pool, k2.din_attention_pool_bwd)
+        for f in counted:
+            f.launches = 0
+        din, din_sample, r_din = pipeline_train(
+            torch, dev, db, "din",
+            dataclasses.replace(tc, epochs=PIPE_DIN_EPOCHS),
+            cfg.model.use_bf16, dict(attention_impl="pallas"),
+            "pipeline-din")
+        _, r_din["auc"], r_din["gauc"] = pipeline_eval(din, test,
+                                                       "pipeline-din")
+        user = int(test_users[0])
+        items = list(range(1, PIPE_CANDS + 1))
+        ranked = rcmd.Rank(rcmd.Context(), din, user, items)
+        require(len(ranked) == PIPE_CANDS and all(
+            0.0 <= s.score <= 1.0 for s in ranked), "pipeline DIN Rank")
+        launches = {f.__name__: f.launches for f in counted}
+        require(all(launches.values()),
+                f"pipeline DIN: a kernel of the path was never launched "
+                f"{launches}")
+        # K2 on the Rank path's own inputs, with a control
+        inp = rank_pool_inputs(torch, din, user, items)
+        got = k2.din_attention_pool(*inp)
+        want = k2.din_attention_pool_plain(*inp)
+        torch.cuda.synchronize()
+        errs = {"K2 rank": max_err(torch, got, want, "bfloat16",
+                                   "K2 pipeline Rank")}
+        atol, rtol = TOL["bfloat16"]
+        rank_ctl, _ = within(torch, torch.zeros_like(want), want, rtol, atol)
+        require(rank_ctl > 0, "pipeline K2 control: a zeroed pool passes")
+        B, T, D = inp[0].shape
+        nb, nf, _, _ = pool_bounds(B, T, D)
+        rank_k2 = dict(ms=device_ms(torch, lambda i: k2.din_attention_pool(
+            *inp), 1), plain_ms=device_ms(
+            torch, lambda i: k2.din_attention_pool_plain(*inp), 1, iters=6))
+        rank_k2["bound_ms"], rank_k2["bound_by"] = bound(nb, nf)
+        log(f"[pipeline-kernels] K2 on the Rank path's inputs B,T,D=({B}, "
+            f"{T}, {D}) bf16, no mask: max err {errs['K2 rank']:.3g} (tol "
+            f"atol={atol} rtol={rtol}), a zeroed pool leaves {rank_ctl} "
+            f"entries outside; device ms per call: kernel "
+            f"{rank_k2['ms']:.5f}, plain {rank_k2['plain_ms']:.5f}, bound "
+            f"{rank_k2['bound_ms']:.5f} ({nb} B, {rank_k2['bound_by']})")
+        # K2 and K2b on the fit's first step (B = batch 200)
+        step = dense_first_step(torch, din.model.model, din_sample,
+                                dataclasses.replace(
+                                    tc, epochs=PIPE_DIN_EPOCHS), dev)
+        fit_errs, fit_ctl = check_dense_kernels(torch, step,
+                                                "pipeline-kernels")
+        errs.update(fit_errs)
+        times = time_dense_kernels(torch, step, "pipeline-kernels")
+        del step, din_sample
+        log(f"[pipeline-din] launches on the main path (Train, BatchPredict"
+            f" over ratings_test, one Rank): {launches}")
+
+        # (3) HTTP through the Rank path, on main.py's MLP
+        http = pipeline_http(torch, mlp, test_users,
+                             PIPE_FIXTURE["n_movies"])
+        prof = profile_rank(torch, mlp, user, items)
+
+        # (4) the CLI
+        cli_s = pipeline_cli(db, user, tmp)
+    del mlp, din
+    torch.cuda.empty_cache()
+    log(f"[pipeline] done in {time.perf_counter() - t_phase:.1f} s")
+    entries = []
+    for key, name, src, replaces, count in (
+            ("K2", "din_attention (pipeline DIN)", "din_attention.cu",
+             "goctr_tpu/ops/pallas/din_attention.py:97",
+             "din_attention_pool"),
+            ("K2b", "din_attention_bwd (pipeline DIN)",
+             "din_attention_bwd.cu", "goctr_tpu/parallel/sparse_ctr.py:128",
+             "din_attention_pool_bwd")):
+        r = times[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"goctr_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[count],
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.split()[0] == key),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    return entries, {"mlp": r_mlp, "din": r_din, "http": http,
+                     "profile": prof, "cli_s": cli_s, "rank_k2": rank_k2,
+                     "controls": dict(fit_ctl, rank=rank_ctl)}
+
+
 def main() -> int:
     import torch
 
@@ -3640,6 +4205,9 @@ def main() -> int:
     # 10. item2vec; 11. the sklearn-style MLPs (no kernel on their path) ----
     w2v = item2vec_phase(torch, dev)
     mlp = mlp_phase(torch, dev)
+
+    # 12. the product path: SQLite → Train → Rank over HTTP, and the CLI ---
+    pipeline_entries, pipe = pipeline_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -3703,7 +4271,7 @@ def main() -> int:
          "launches": launches["din_attention"], "max_abs_err": k2_err,
          "ms": din_ms, "plain_ms": din_plain_ms, "bound_ms": din_bound_ms,
          "bound_by": din_bound_by, "library_ms": None},
-    ] + train_entries + [k3_entry] + dense_entries}
+    ] + train_entries + [k3_entry] + dense_entries + pipeline_entries}
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "
@@ -3712,8 +4280,11 @@ def main() -> int:
         f"{w2v['words_per_s_b']:.1f} (run B), purity {w2v['purity']:.4f}; "
         f"MLP held-out AUC {mlp['adam']['auc']:.4f}, s an iteration lbfgs "
         f"{mlp['lbfgs']['s_iter']:.4f}, bfgs {mlp['bfgs']['s_iter']:.4f}, "
-        f"cg {mlp['cg']['s_iter']:.4f}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"cg {mlp['cg']['s_iter']:.4f}; pipeline MLP held-out AUC "
+        f"{pipe['mlp']['auc']:.4f}, GAUC {pipe['mlp']['gauc']:.4f}, fit "
+        f"{pipe['mlp']['fit_ex_per_s']:.1f} ex/s, Rank over HTTP p50 "
+        f"{pipe['http']['p50_ms']:.2f} ms p99 {pipe['http']['p99_ms']:.2f} "
+        f"ms; total {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""HTTP scoring API (port of goctr_tpu/serve/api.py).
+"""HTTP scoring API + dashboard endpoints (port of goctr_tpu/serve/api.py).
 
 Endpoint/schema parity with the reference gin server
 (go-ctr recommend/api.go):
@@ -8,19 +8,21 @@ Endpoint/schema parity with the reference gin server
   GET  /service/items        ?page=&size= → items feature overview
   GET  /service/overview     dashboard counts
   GET  /service/featuredist  ?kind=items|users → per-feature histograms
-  GET  /                     a minimal page (the dashboard is not ported)
+  GET  /                     the embedded dashboard page (serve/dashboard.html,
+                             the port's copy of the JAX package's page)
 
-Ranking goes through the predictor's `rank_direct` (serve/scorer.py
-SparseRankPredictor: device-resident table, micro-batched). The
-host-assembly `Rank` path of the JAX server comes with the port of
-recommend/; until then a predictor without `rank_direct` gets 501. Item
-ids outside the table get 400, naming them (the table has no row to score
-them: JAX's server answers a bare NaN for an id past the table). The
-/service/* endpoints call the predictor's `rec_sys` duck-typed, with
-`None` in place of the JAX package's recommend Context.
+Ranking: a predictor with `rank_direct` (serve/scorer.py
+SparseRankPredictor: device-resident table, micro-batched) takes it, and
+item ids outside its table get 400 naming them (the table has no row to
+score them: JAX's server answers a bare NaN for an id past the table).
+Any other predictor (recommend/rcmd.py Predictor, what Train returns) goes
+through `Rank`: host assembly from its rec_sys, then its model's predict.
+An unknown userId, or an unknown first item, gets 400 naming the id (JAX
+answers 500). The /service/* endpoints call the predictor's `rec_sys`
+duck-typed with a fresh `Context()`, as JAX's do.
 
 stdlib http.server; ThreadingHTTPServer handles each request on its own
-thread, and the MicroBatcher coalesces concurrent requests.
+thread, and the MicroBatcher coalesces concurrent rank_direct requests.
 """
 from __future__ import annotations
 
@@ -28,13 +30,15 @@ import json
 import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from urllib.parse import parse_qs, urlparse
 
+from goctr_tpu_torch.recommend.rcmd import Context, Rank, UnknownIdError
 from goctr_tpu_torch.serve.scorer import ItemIdsOutsideTable
 
 log = logging.getLogger(__name__)
 
-_INDEX_HTML = "<html><body>goctr_tpu_torch</body></html>"
+_DASHBOARD_HTML = Path(__file__).resolve().parent / "dashboard.html"
 
 
 class _Server(ThreadingHTTPServer):
@@ -62,39 +66,42 @@ class RecApiServer:
             return 400, {"error": "userId must be an integer"}
         if not item_ids:
             return 400, {"error": "itemIdList is empty"}   # api.go:116
-        if not hasattr(self.predictor, "rank_direct"):
-            return 501, {"error": "this predictor has no rank_direct; the "
-                                  "host-assembly ranking path (recommend/) "
-                                  "is not ported yet"}
+        item_ids = [int(i) for i in item_ids]
+        if hasattr(self.predictor, "rank_direct"):
+            try:
+                pairs = self.predictor.rank_direct(user_id, item_ids)
+            except ItemIdsOutsideTable as e:
+                return 400, {"error": str(e),
+                             "itemIdsOutsideTable": e.ids}
+            return 200, {"itemScoreList": [
+                {"itemId": i, "score": s} for i, s in pairs]}
         try:
-            pairs = self.predictor.rank_direct(user_id,
-                                               [int(i) for i in item_ids])
-        except ItemIdsOutsideTable as e:
-            return 400, {"error": str(e), "itemIdsOutsideTable": e.ids}
+            scores = Rank(Context(), self.predictor, user_id, item_ids)
+        except UnknownIdError as e:
+            return 400, {"error": str(e), e.kind: e.id}
         return 200, {"itemScoreList": [
-            {"itemId": i, "score": s} for i, s in pairs]}
+            {"itemId": s.item_id, "score": s.score} for s in scores]}
 
     def _overview(self, which: str, offset: int, size: int,
                   opts: dict) -> tuple[int, object]:
         rs = getattr(self.predictor, "rec_sys", None)
+        ctx = Context()
         if which == "useritems":
             if not hasattr(rs, "get_users_feature_overview"):
                 return 200, "do not support feature overview"
-            return 200, rs.get_users_feature_overview(None, offset, size,
-                                                      opts)
+            return 200, rs.get_users_feature_overview(ctx, offset, size, opts)
         if which == "items":
             if not hasattr(rs, "get_items_feature_overview"):
                 return 200, "do not support item overview"
-            return 200, rs.get_items_feature_overview(None, offset, size,
-                                                      opts)
+            return 200, rs.get_items_feature_overview(ctx, offset, size, opts)
         if which == "featuredist":
             if not hasattr(rs, "get_feature_distributions"):
                 return 200, "do not support feature distributions"
             kind = (opts.get("kind") or ["items"])[0]
-            return 200, rs.get_feature_distributions(None, kind=kind)
+            return 200, rs.get_feature_distributions(ctx, kind=kind)
         if not hasattr(rs, "get_dashboard_overview"):
             return 200, "do not support overview"
-        return 200, rs.get_dashboard_overview(None)
+        return 200, rs.get_dashboard_overview(ctx)
 
     # -------------------------------------------------------------- server --
     def _make_handler(server_self):
@@ -131,7 +138,7 @@ class RecApiServer:
                         code, payload = 500, {"error": str(e)}
                     self._send(code, payload)
                 elif url.path in ("/", "/index.html"):
-                    self._send(200, _INDEX_HTML, "text/html")
+                    self._send(200, _DASHBOARD_HTML.read_text(), "text/html")
                 else:
                     self._send(404, {"error": "not found"})
 
@@ -178,3 +185,12 @@ class RecApiServer:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+
+
+def start_http_api(predictor, path: str = "/api/v1/recommend",
+                   addr: str = ":8080") -> None:
+    """Blocking serve (StartHttpApi parity, api.go:27)."""
+    host, _, port = addr.rpartition(":")
+    server = RecApiServer(predictor, api_path=path, host=host or "0.0.0.0",
+                          port=int(port))
+    server.start(background=False)

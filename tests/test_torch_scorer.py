@@ -317,7 +317,7 @@ def test_http_rank_direct_matches_jax(trained):
                                     timeout=30) as resp:
             assert json.loads(resp.read()) == "do not support overview"
         with urllib.request.urlopen(f"{url}/", timeout=30) as resp:
-            assert b"goctr_tpu_torch" in resp.read()
+            assert b"dashboard" in resp.read().lower()
     finally:
         srv.stop()
 
@@ -356,13 +356,39 @@ def test_http_refuses_item_ids_outside_the_table(trained, bad):
         srv.stop()
 
 
+class _ConstRec:
+    """A provider whose user and item features are constants."""
+
+    def get_user_feature(self, ctx, user_id):
+        return np.full(3, user_id, np.float32)
+
+    def get_item_feature(self, ctx, item_id):
+        return np.full(2, item_id, np.float32)
+
+
+class _SumModel:
+    def predict(self, x):
+        return x.sum(1) / 100.0
+
+
 def test_http_without_rank_direct_is_501():
-    srv = RecApiServer(object(), host="127.0.0.1", port=0).start(
+    """A predictor without rank_direct gets no 501: it is ranked by
+    recommend's Rank (host assembly, then its model), as the JAX server
+    ranks it."""
+    from goctr_tpu_torch.recommend.rcmd import Predictor
+
+    pred = Predictor(rec_sys=_ConstRec(), model=_SumModel())
+    srv = RecApiServer(pred, host="127.0.0.1", port=0).start(
         background=True)
     try:
         status, out = _post(f"http://127.0.0.1:{srv.port}/api/v1/recommend",
                             {"userId": 1, "itemIdList": [1, 2]})
-        assert status == 501 and "not ported" in out["error"]
+        assert status == 200
+        # no embedding map: the row is [user 1 ×3 | zeros | item ×2]
+        lst = out["itemScoreList"]
+        assert [e["itemId"] for e in lst] == [1, 2]
+        np.testing.assert_allclose([e["score"] for e in lst], [0.05, 0.07],
+                                   rtol=1e-6)
     finally:
         srv.stop()
 
