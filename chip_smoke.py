@@ -148,13 +148,30 @@ Phases, in order; any failure raises and the script exits nonzero:
                assembly, copies, device time, idle share); and
                `python -m goctr_tpu_torch.main` as a subprocess until it
                answers one POST.
+ 13. ml20m   — the ML-20M-statistics protocol through
+               scripts/parity_ml20m_torch.py's stages: the port's
+               generator at scale 0.05 (6,924 users × 1,337 movies, ~1.1M
+               ratings) with PARITY_ML20M_r05_scale01.json's knobs;
+               seconds of generation, pre_train, item2vec (on the card),
+               assembly (rows/s: 720,000 × 281) and the test slice's
+               assembly; MLP, YouTube-DNN and DIN "pallas" by RankerFitter
+               (3 epochs, batch 16,384, f16 storage, bf16, relu towers):
+               examples/s, ms a step, peak memory, held-out AUC and GAUC on
+               the card, each AUC above JAX's lowest CPU reading of the
+               same configuration over seeds 0-4 less 0.02 (control: DIN's
+               scores against shuffled labels must not clear it); K2 /
+               K2b launches reset
+               before the DIN fit and read after its predict, both held
+               against their plain versions on the fit's first step with
+               phase 9's limits and controls, and timed; a profiled DIN
+               step (idle share).
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
 JSON line (the ten kernels; K1 at the serving shape, at the headline and
 grouped forward gathers and at the row-update read; K2 at the serving
 and at the headline training shape; K2 and K2b at the dense DIN's
-shape and at the pipeline DIN's) and, last,
+shape at the pipeline DIN's and at the ML-20M DIN's) and, last,
 {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
@@ -4008,6 +4025,193 @@ def pipeline_phase(torch, dev):
                      "controls": dict(fit_ctl, rank=rank_ctl)}
 
 
+# ------------------------------------------------------------ phase 13 --
+# The ML-20M-statistics protocol (scripts/parity_ml20m_torch.py) at a cut
+# scale: 0.05 of ML-20M's users and movies (6,924 × 1,337, ~1.1M ratings;
+# 720,000 training rows, 280,500 test rows asked for), the signal knobs of
+# PARITY_ML20M_r05_scale01.json (those that differ from SignalKnobs()).
+ML20M_SCALE = 0.05
+ML20M_KNOBS = dict(beta=0.45, noise=1.0, p_stay=0.7, p_follow=0.6,
+                   p_chain=0.55, beta_item=2.5, chain_w=10, latent_dim=16,
+                   latent_genre_w=0.6, item_thr=0.5)
+ML20M_FLAGS = ["--epochs=3", "--batch=16384", "--seq_act=relu",
+               "--attention_impl=pallas"]
+# Held-out AUC of the JAX package's own runs of this configuration on the
+# CPU, the lowest of seeds 0-4: python scripts/parity_ml20m.py --cpu
+# --scale=0.05 --set <each knob above> --epochs=3 --batch=16384
+# --seq_act=relu --seed=<0-4> read mlp 0.702105, 0.678268, 0.685585,
+# 0.692400, 0.686352; youtube 0.731668, 0.727832, 0.707780, 0.691689,
+# 0.723947; din 0.731510, 0.722437, 0.703372, 0.688363, 0.726002. After
+# 132 steps the seed alone moves an AUC by up to 0.04 in either package
+# (the port's CPU runs of seeds 0-4 read din 0.702714-0.731847), so a bar
+# taken from one seed would fail on the draw, not on the port.
+ML20M_JAX_AUC = {"mlp": 0.678268, "youtube": 0.691689, "din": 0.688363}
+ML20M_AUC_MARGIN = 0.02             # each model's bar: JAX's AUC − this
+
+
+def parity_script():
+    """scripts/parity_ml20m_torch.py as a module (its stages and flags)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / \
+        "parity_ml20m_torch.py"
+    spec = importlib.util.spec_from_file_location("parity_ml20m_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ml20m_phase(torch, dev):
+    """Phase 13: the ML-20M-statistics protocol on the card, through
+    scripts/parity_ml20m_torch.py's stages. The fixture generated at
+    ML20M_SCALE with ML20M_KNOBS (goctr_tpu_torch/data/ml20m.py), then
+    pre_train, item2vec on the card, get_sample and the test slice's
+    assembly (`prepare`), each timed; MLP, YouTube-DNN and DIN "pallas"
+    fitted by RankerFitter with the script's TrainerConfig (3 epochs,
+    batch 16,384, f16 storage, bf16, relu towers) and scored on the test
+    slice by the device AUC/GAUC, each AUC above its bar (JAX's lowest
+    reading of five seeds on the CPU − ML20M_AUC_MARGIN; control: DIN's
+    scores against shuffled labels must not clear it). K2 / K2b launches reset just before the
+    DIN fit and read after its predict; both held against their plain
+    versions on the fit's first step with phase 9's limits and controls,
+    and timed; a profiled DIN step. Returns the kernels-line entries and
+    readings."""
+    import dataclasses
+    import tempfile
+
+    from goctr_tpu_torch.core.metrics import gauc_device, roc_auc_device
+    from goctr_tpu_torch.data.ml20m import SignalKnobs, generate_ml20m_fixture
+    from goctr_tpu_torch.ops.kernels import din_attention as k2
+    from goctr_tpu_torch.recommend.rcmd import RankerFitter
+
+    t_phase = time.perf_counter()
+    script = parity_script()
+    args = script.parse_args([f"--scale={ML20M_SCALE}"] + ML20M_FLAGS)
+    out = {"timings": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        db = f"{tmp}/ml20m.db"
+        t0 = time.perf_counter()
+        stats = generate_ml20m_fixture(
+            db, scale=ML20M_SCALE, knobs=SignalKnobs(**ML20M_KNOBS),
+            oversample=args.oversample)
+        out["timings"]["generate_s"] = time.perf_counter() - t0
+        sample, x_test, te_y, te_uid = script.prepare(
+            db, args.sample_cnt, args.test_cnt, dev, out["timings"])
+    tm = out["timings"]
+    log(f"[ml20m] fixture scale {ML20M_SCALE}: {stats['n_users']} users × "
+        f"{stats['n_movies']} movies, {stats['n_ratings']} ratings (positive"
+        f" rate {stats['pos_rate']:.4f}); s: generation "
+        f"{tm['generate_s']:.3f}, pre_train {tm['pre_train_s']:.3f}, "
+        f"item2vec {tm['item2vec_s']:.3f}, assembly {tm['assembly_s']:.3f} "
+        f"({sample.rows / tm['assembly_s']:.1f} rows/s: {sample.rows} × "
+        f"{sample.x.shape[1]}), test assembly {tm['test_assembly_s']:.3f} "
+        f"({x_test.shape[0]} rows, positive rate {te_y.mean():.4f})")
+    require(sample.x.shape[1] == ml20m_info().width and sample.rows > 0
+            and np.isfinite(sample.x).all() and np.isfinite(x_test).all(),
+            f"ml20m: assembled {sample.x.shape} / {x_test.shape}")
+    y_dev = torch.from_numpy(te_y).to(dev)
+    u_dev = torch.from_numpy(np.asarray(te_uid)).to(dev)
+    steps = -(-sample.rows // args.batch)
+    counted = (k2.din_attention_pool, k2.din_attention_pool_bwd)
+    rankers, readings = {}, {}
+    for name in ("mlp", "youtube", "din"):
+        cfg = script.trainer_config(name, args.epochs, args)
+        fitter = RankerFitter(name, cfg, use_bf16=True, device=dev,
+                              **script.model_kwargs(name, args))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        if name == "din":               # the main path of K2 and K2b
+            for f in counted:
+                f.launches = 0
+        t0 = time.perf_counter()
+        r = fitter.fit(sample)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        if name == "din":
+            fit_launches = {f.__name__: f.launches for f in counted}
+        t0 = time.perf_counter()
+        scores = torch.from_numpy(r.predict(x_test, batch_size=args.pred_bs)
+                                  ).to(dev)
+        auc = float(roc_auc_device(scores, y_dev))
+        g = float(gauc_device(scores, y_dev, u_dev))
+        eval_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 - held
+        lc, later = r.loss_curve, r.epoch_times[1:]
+        bar = ML20M_JAX_AUC[name] - ML20M_AUC_MARGIN
+        readings[name] = dict(
+            auc=auc, gauc=g, bar=bar, fit_s=fit_s, eval_s=eval_s,
+            peak_gb=peak, epochs=len(lc),
+            ex_per_s=sample.rows * len(later) / sum(later),
+            step_ms=sum(later) / (steps * len(later)) * 1e3)
+        rankers[name] = r
+        log(f"[ml20m] {name}: fit {fit_s:.3f} s ({len(lc)} epochs of "
+            f"{steps} steps; epochs 2-: {readings[name]['ex_per_s']:.1f} "
+            f"ex/s, {readings[name]['step_ms']:.4f} ms a step), loss curve "
+            f"{[round(x, 6) for x in lc]}; peak device memory {peak:.3f} GB "
+            f"above the {held:.3f} GB held before; predict + metrics over "
+            f"{x_test.shape[0]} test rows {eval_s:.3f} s; held-out AUC "
+            f"{auc:.6f} GAUC {g:.6f} (bar {bar:.6f}: JAX's lowest of five "
+            f"seeds on the CPU {ML20M_JAX_AUC[name]} − {ML20M_AUC_MARGIN})")
+        require(all(np.isfinite(lc)) and lc[-1] < lc[0]
+                and bool(torch.isfinite(scores).all()),
+                f"ml20m {name}: loss curve {lc}, finite scores "
+                f"{bool(torch.isfinite(scores).all())}")
+        require(auc > bar, f"ml20m {name}: held-out AUC {auc:.6f} <= bar "
+                           f"{bar:.6f}")
+        if name == "din":
+            launches = {f.__name__: f.launches for f in counted}
+            shuffled = torch.from_numpy(
+                np.random.default_rng(SEED).permutation(te_y)).to(dev)
+            ctl_auc = float(roc_auc_device(scores, shuffled))
+            require(ctl_auc <= bar, f"ml20m control: DIN against shuffled "
+                                    f"labels reads AUC {ctl_auc:.6f} > {bar}")
+        del scores
+    require(all(launches.values()),
+            f"ml20m DIN: a kernel of the path was never launched {launches}")
+    log(f"[ml20m] DIN pallas launches: fit {fit_launches}, fit + predict "
+        f"{launches}; control: DIN's scores against shuffled labels AUC "
+        f"{ctl_auc:.6f} (bar {readings['din']['bar']:.6f})")
+
+    # K2 and K2b on the DIN fit's first step, with phase 9's limits
+    din = rankers["din"]
+    cfg = script.trainer_config("din", args.epochs, args)
+    step = dense_first_step(torch, din.model, sample, cfg, dev)
+    errs, ctl = check_dense_kernels(torch, step, "ml20m-kernels")
+    times = time_dense_kernels(torch, step, "ml20m-kernels")
+    del step
+    prof = profile_dense_steps(torch, din, sample, dataclasses.replace(
+        cfg, epochs=1), dev)
+    idle = max(0.0, 1 - prof["busy_ms"] / prof["wall_ms"])
+    del rankers, din
+    torch.cuda.empty_cache()
+    log(f"[ml20m] done in {time.perf_counter() - t_phase:.1f} s: profiled "
+        f"DIN step busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} "
+        f"(idle share {idle:.3f}); kernel controls {ctl}")
+    entries = []
+    for key, name, src, replaces, count in (
+            ("K2", "din_attention (ml20m DIN)", "din_attention.cu",
+             "goctr_tpu/ops/pallas/din_attention.py:97",
+             "din_attention_pool"),
+            ("K2b", "din_attention_bwd (ml20m DIN)", "din_attention_bwd.cu",
+             "goctr_tpu/parallel/sparse_ctr.py:128",
+             "din_attention_pool_bwd")):
+        t = times[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"goctr_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[count],
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.split()[0] == key),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    out.update(models=readings, idle=idle, launches=launches,
+               control_auc=ctl_auc, stats=stats)
+    return entries, out
+
+
 def main() -> int:
     import torch
 
@@ -4208,6 +4412,10 @@ def main() -> int:
 
     # 12. the product path: SQLite → Train → Rank over HTTP, and the CLI ---
     pipeline_entries, pipe = pipeline_phase(torch, dev)
+
+    # 13. the ML-20M-statistics protocol (scripts/parity_ml20m_torch.py) --
+    ml20m_entries, ml20m = ml20m_phase(torch, dev)
+    ml20m_auc = {k: round(v["auc"], 6) for k, v in ml20m["models"].items()}
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -4271,7 +4479,8 @@ def main() -> int:
          "launches": launches["din_attention"], "max_abs_err": k2_err,
          "ms": din_ms, "plain_ms": din_plain_ms, "bound_ms": din_bound_ms,
          "bound_by": din_bound_by, "library_ms": None},
-    ] + train_entries + [k3_entry] + dense_entries + pipeline_entries}
+    ] + train_entries + [k3_entry] + dense_entries + pipeline_entries
+        + ml20m_entries}
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "
@@ -4284,7 +4493,8 @@ def main() -> int:
         f"{pipe['mlp']['auc']:.4f}, GAUC {pipe['mlp']['gauc']:.4f}, fit "
         f"{pipe['mlp']['fit_ex_per_s']:.1f} ex/s, Rank over HTTP p50 "
         f"{pipe['http']['p50_ms']:.2f} ms p99 {pipe['http']['p99_ms']:.2f} "
-        f"ms; total {time.perf_counter() - t_start:.1f} s")
+        f"ms; ml20m held-out AUC {ml20m_auc}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ the reference becomes a kernel written by hand for Hopper (CUDA C++ under
 `csrc/`, built for sm_90a at first use); plain tensor code is PyTorch.
 
 Layer map (mirrors goctr_tpu; only the ported slices exist):
-  core/      — dtype policy, device resolution, the (data, model) mesh
-               (1×1 so far)
+  core/      — device resolution, the (data, model) mesh (1×1 so far),
+               config, metrics, named generators (prng), profiling
   ops/       — activations + the hand kernels (`ops/kernels/`) with their
                plain PyTorch versions and the packed-table layouts
   models/    — shared init helpers, parameter (de)flattening, sparse
@@ -20,6 +20,13 @@ Layer map (mirrors goctr_tpu; only the ported slices exist):
                scanned trainer and the mesh trainer with their results
                and checkpoints
   serve/     — device-resident scorer, micro-batcher, HTTP API
+  data/      — schema scanners, the MovieLens and ML-20M-statistics
+               fixtures, MovielensRec, sample files
+  features/  — hashing, encoders, scalers, normalizers, text, the
+               user-behavior cache, sklearn-style preprocessing (host)
+  recommend/ — Train / BatchPredict / Rank over a feature provider
+  native/, utils/ — the host C tier (FNV, row gathers), helpers
+  examples/  — futuresales (python -m goctr_tpu_torch.examples.futuresales)
   convert.py — carries JAX-side parameters (as numpy) into the port
 
 Entry points take `device=` and default to "cuda"; without a card they

@@ -1,9 +1,8 @@
 """Activations and similarity ops (port of goctr_tpu/ops/activations.py).
 
-Parity targets: reference model/activation.go (CosineSimilarity:52-85)
-and the sklearn-port activation table
-(nn/neural_network/basemlp64.go:79-117). prelu and euclidean_distance
-come with the dense rankers that use them.
+Parity targets: reference model/activation.go (PRelu32:10-16,
+EucDistance:18-50, CosineSimilarity:52-85) and the sklearn-port
+activation table (nn/neural_network/basemlp64.go:79-117).
 """
 from __future__ import annotations
 
@@ -41,6 +40,12 @@ ACTIVATIONS = {
 }
 
 
+def prelu(x: torch.Tensor, slope) -> torch.Tensor:
+    """Learnable leaky-relu (reference PRelu32 activation.go:10-16):
+    0.5*((x - |x|)*slope + (x + |x|))."""
+    return 0.5 * ((x - x.abs()) * slope + (x + x.abs()))
+
+
 def cosine_similarity(x: torch.Tensor, y: torch.Tensor,
                       eps: float = 1e-8) -> torch.Tensor:
     """Cosine similarity over the last axis with broadcasting
@@ -59,3 +64,10 @@ def cosine_similarity(x: torch.Tensor, y: torch.Tensor,
     xn = torch.sqrt(torch.clamp((x * x).sum(-1), min=e2.item()))
     yn = torch.sqrt(torch.clamp((y * y).sum(-1), min=e2.item()))
     return dot / (xn * yn + eps)
+
+
+def euclidean_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """L2 distance over the last axis with broadcasting
+    (reference EucDistance activation.go:18-50)."""
+    d = x - y
+    return torch.sqrt((d * d).sum(-1))

@@ -47,6 +47,17 @@ def test_chip_smoke_imports_no_jax():
     assert not bad
 
 
+@pytest.mark.parametrize("script", ["parity_ml20m_torch.py",
+                                    "din_pool_sweep.py",
+                                    "gather_run_sweep.py"])
+def test_port_script_imports_no_jax(script):
+    """The scripts that drive the port on the card import neither."""
+    path = PKG.parent / "scripts" / script
+    bad = [n for n in _imports(path.read_text())
+           if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
 def test_scan_sees_imports():
     """The scan must catch every import form, nested ones included."""
     src = ("import os\nfrom a.b import c\n"
