@@ -165,13 +165,36 @@ Phases, in order; any failure raises and the script exits nonzero:
                against their plain versions on the fit's first step with
                phase 9's limits and controls, and timed; a profiled DIN
                step (idle share).
+ 14. mesh ranks — the (data, model) mesh on one card: ranks that share
+               cuda:0 over gloo (core/meshes.py `launch`; every
+               collective staged through pinned host memory). After the
+               1×1 references of the same starts (in this process, the
+               cache freed after each), 4 ranks on 2×2: (a) the headline
+               through train_sparse (fused, table adagrad) with the split
+               update and with K5, 3 steps of 65,536 an epoch (32,768 a
+               data shard), 2 epochs, and a control (stage 4 writing each
+               run one row on); (c) the dense path with mean pooling, adam
+               on every leaf, the table shard included (K3 "sum" on the
+               locally masked ids), at the headline widths over a 1M
+               vocab; then 2 ranks on 1×2: (b) the 100M × 16 resident
+               lines, one epoch with K6 (each rank's lines against JAX's
+               3.7 GB a device). Each loss curve within MESH_RANKS_LOSS_
+               RTOL of its 1×1 run, the control outside; in each rank the
+               launch counts reset just before its run and read just
+               after, K1, K3, K5 and K6 held against their plain versions
+               on the rank's own inputs (captured on their first call)
+               and timed one rank at a time, peak memory. NCCL round-trips
+               all_reduce and all_gather at world size 1; with two or more
+               cards (a) runs one rank a card over NCCL, else a line says
+               why not.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
 JSON line (the ten kernels; K1 at the serving shape, at the headline and
 grouped forward gathers and at the row-update read; K2 at the serving
 and at the headline training shape; K2 and K2b at the dense DIN's
-shape at the pipeline DIN's and at the ML-20M DIN's) and, last,
+shape at the pipeline DIN's and at the ML-20M DIN's; K1, K3 "sum", K5
+and K6 of phase 14, one entry a rank) and, last,
 {"ok": true, "device": {...}}.
 
 Exits nonzero when no CUDA device is available.
@@ -4212,6 +4235,434 @@ def ml20m_phase(torch, dev):
     return entries, out
 
 
+# ------------------------------------------------------------ phase 14 --
+# the mesh on one card: ranks that share cuda:0 over gloo (core/meshes.py)
+MESH_RANKS_STEPS = 3                # steps an epoch of (a) and (c)
+MESH_RANKS_EPOCHS = 2
+MESH_RANKS_GROUPED_STEPS = 3        # (b): one epoch
+MESH_RANKS_DENSE_VOCAB = 1_000_000  # (c): its [V/m, 64] gradient crosses
+#                                     the host every step
+# loss curves of (d, m) vs the 1×1 run of the same start: an H100 at 700 W
+# read 3.0e-6 for (a), 1.9e-6 for (c) and 0 for (b) (one data shard: the
+# 1×1 stream), the control 1.5e-3
+MESH_RANKS_LOSS_RTOL = 1e-4
+MESH_RANKS_TIMEOUT_S = 600
+
+
+class Capture:
+    """Replaces a module's kernel wrapper with a pass-through that keeps a
+    copy of its first call's arguments (the inputs the main path gave it
+    on this rank)."""
+
+    def __init__(self, torch, module, attr):
+        self.torch, self.module, self.attr = torch, module, attr
+        self.real = getattr(module, attr)
+        self.args = None
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+    def __call__(self, *args, **kw):
+        if self.args is None:
+            self.args = ([a.clone() if self.torch.is_tensor(a) else a
+                          for a in args], dict(kw))
+        return self.real(*args, **kw)
+
+
+def mesh_ranks_configs():
+    """(name, spec, model config, table_opt kwargs or None, rows an
+    epoch, epochs): (a) the headline through train_sparse on 2×2 with the
+    split update and with K5; (b) the 100M × 16 resident lines on 1×2
+    with K6; (c) the dense path with mean pooling on 2×2 (adam on every
+    leaf, the table shard included)."""
+    steps = MESH_RANKS_STEPS * TRAIN_BATCH
+    fused = dict(kind="adagrad", lr=TABLE_LR, update_mode="fused")
+    return [
+        ("a-split", (2, 2), HEADLINE, dict(fused, rmw_impl="split"), steps,
+         MESH_RANKS_EPOCHS),
+        ("a-kernel", (2, 2), HEADLINE, dict(fused, rmw_impl="kernel"),
+         steps, MESH_RANKS_EPOCHS),
+        ("c-dense", (2, 2), dict(HEADLINE, pooling="mean",
+                                 item_vocab=MESH_RANKS_DENSE_VOCAB), None,
+         steps, MESH_RANKS_EPOCHS),
+        ("b-grouped", (1, 2), GROUPED, dict(fused, rmw_impl="kernel"),
+         MESH_RANKS_GROUPED_STEPS * TRAIN_BATCH, 1)]
+
+
+def mesh_ranks_run(torch, mesh, mc, topt, rows, epochs, dev):
+    """train_sparse of one configuration on `mesh` (1×1 in the parent, a
+    rank's shards in a rank), fresh from SEED; (loss curve, epoch
+    seconds, bytes of the trained table on this rank)."""
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+    from goctr_tpu_torch.parallel.sparse_trainer import train_sparse
+    from goctr_tpu_torch.parallel.table_opt import TableOptConfig
+
+    sample = make_workload(rows, mc["item_vocab"], mc["behavior_len"],
+                           mc["u_profile_dim"], mc["ctx_dim"], seed=SEED)[0]
+    cfg = TrainerConfig(batch_size=TRAIN_BATCH, epochs=epochs, early_stop=0,
+                        lr=1e-3, l2=0.0, shuffle=True, seed=SEED)
+    r = train_sparse(
+        SparseCTR(**mc, compute_dtype=torch.bfloat16, device=dev), sample,
+        mesh, cfg, table_opt=TableOptConfig(**topt) if topt else None)
+    require(r.lookup_overflow_max == 0 and all(np.isfinite(r.loss_curve)),
+            "mesh ranks: overflow or a non-finite loss")
+    return list(r.loss_curve), list(r.epoch_times), r.table.numel() * 4
+
+
+def mesh_ranks_kernels(torch, name, caps):
+    """Each captured kernel against its plain version on this rank's own
+    inputs (K1 and K3 on the locally masked ids, K5 / K6 on the stage-4
+    stream of this model shard); returns {kernel: (max err, args)}."""
+    from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
+    from goctr_tpu_torch.ops.kernels import row_gather as k1
+    from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+
+    out = {}
+    for key, cap in caps.items():
+        (args, kw) = cap.args
+        if key == "K1":
+            got = k1.gather_rows(*args, **kw)
+            want = k1.gather_rows_plain(*args, **kw)
+            require(torch.equal(torch.nan_to_num(got),
+                                torch.nan_to_num(want)),
+                    f"mesh ranks {name}: K1 differs from plain")
+            err = 0.0
+        elif key == "K3":
+            err = max_err(torch, k3.fused_gather_pool(*args, **kw),
+                          k3.fused_gather_pool_plain(*args, **kw),
+                          "float32", f"mesh ranks {name} K3 sum")
+        else:
+            kern, plain = ((ro.apply_row_updates, ro.apply_row_updates_plain)
+                           if key == "K5" else
+                           (ro.apply_line_updates,
+                            ro.apply_line_updates_plain))
+            table, ids, upd = args
+            hit = ids[ids < kw["skip_ge"]].long()
+            got = kern(table.clone(), ids, upd, **kw)[hit]
+            want = plain(table.clone(), ids, upd, **kw)[hit]
+            err = max_err(torch, got, want, "float32",
+                          f"mesh ranks {name} {key}")
+            require(hit.numel() > 0, f"mesh ranks {name}: {key} updated no "
+                                     "line of this shard")
+        out[key] = err
+    return out
+
+
+def mesh_ranks_times(torch, caps):
+    """Device ms (CUDA events) of each captured kernel, its plain version
+    and its library call on this rank's inputs, with bounds."""
+    import torch.nn.functional as F
+
+    from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
+    from goctr_tpu_torch.ops.kernels import row_gather as k1
+    from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+
+    out = {}
+    for key, cap in caps.items():
+        args, kw = cap.args
+        if key == "K1":
+            table, ids = args
+            d, g = kw["dim"], kw.get("group", 1)
+            r = dict(ms=cuda_ms(torch, lambda: k1.gather_rows(*args, **kw)),
+                     plain_ms=cuda_ms(torch, lambda: k1.gather_rows_plain(
+                         *args, **kw), iters=5),
+                     library_ms=cuda_ms(torch, lambda: torch.index_select(
+                         table, 0, (ids // g).reshape(-1))),
+                     bytes=ids.numel() * (4 + d * 4) + row_sector_bytes(
+                         torch, ids, g, d, table.shape[1]), flops=0)
+        elif key == "K3":
+            table, ids = args[:2]
+            b, k = ids.shape
+            d = table.shape[1]
+            valid = (ids >= 0).float()
+            safe = ids.clamp_min(0)
+            r = dict(ms=cuda_ms(torch, lambda: k3.fused_gather_pool(
+                         *args, **kw)),
+                     plain_ms=cuda_ms(torch, lambda: k3.fused_gather_pool_plain(
+                         *args, **kw), iters=5),
+                     library_ms=cuda_ms(torch, lambda: F.embedding_bag(
+                         safe, table, mode="sum", per_sample_weights=valid)),
+                     bytes=ids.numel() * 4 + b * d * 4 + torch.unique(
+                         ids[ids >= 0]).numel() * d * 4,
+                     flops=b * k * d)
+        else:
+            kern, plain = ((ro.apply_row_updates, ro.apply_row_updates_plain)
+                           if key == "K5" else
+                           (ro.apply_line_updates,
+                            ro.apply_line_updates_plain))
+            table, ids, upd = args
+            n_real = int((ids < kw["skip_ge"]).sum())
+            live = (ro.group_size(kw["d"]) if key == "K6" else 1) * (
+                kw["d"] + 1)
+            r = dict(ms=cuda_ms(torch, lambda: kern(table, ids, upd, **kw)),
+                     plain_ms=cuda_ms(torch, lambda: plain(
+                         table, ids, upd, **kw), iters=5),
+                     library_ms=None,
+                     bytes=ids.numel() * 4 + n_real * (-(-4 * live // 32)
+                                                       * 32) * 3,
+                     flops=n_real * live * 8)
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"))
+        out[key] = r
+    return out
+
+
+def mesh_rank_main(spec, names, device="cuda:0"):
+    """One rank of phase 14: the configurations `names` on the (d, m) mesh
+    of ranks that share cuda:0 (the `launch` target). Each configuration
+    resets the launch counts just before and reads them just after; its
+    kernels are captured on their first call, held against their plain
+    versions on this rank's inputs and, one rank at a time, timed."""
+    import torch
+
+    from goctr_tpu_torch.core.meshes import (
+        MeshSpec, barrier, make_mesh, single_device_mesh)
+    from goctr_tpu_torch.parallel import embedding as emb
+    from goctr_tpu_torch.parallel import train as tr
+
+    torch.set_grad_enabled(False)
+    dev = torch.device(device)
+    n = spec[0] * spec[1]
+    mesh = (make_mesh(MeshSpec(*spec), devices=[dev] * n) if n > 1
+            else single_device_mesh(dev))
+    configs = {c[0]: c for c in mesh_ranks_configs()}
+    counted = counted_kernels()
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    for name in names:
+        if name == "a-control":        # stage 4 writes each run one row on
+            _, _, mc, topt, rows, _ = configs["a-split"]
+            real = tr.apply_row_updates_split
+            tr.apply_row_updates_split = (
+                lambda table, ids, upd, skip_ge, real=real, **kw: real(
+                    table, torch.where(ids < skip_ge, ids + 1, ids), upd,
+                    skip_ge=skip_ge, **kw))
+            try:
+                out[name] = {"loss_curve": mesh_ranks_run(
+                    torch, mesh, mc, topt, rows, 1, dev)[0]}
+            finally:
+                tr.apply_row_updates_split = real
+            continue
+        _, _, mc, topt, rows, epochs = configs[name]
+        caps = {}
+        with contextlib.ExitStack() as stack:
+            if topt is None:
+                caps["K3"] = stack.enter_context(
+                    Capture(torch, emb, "fused_gather_pool"))
+            else:
+                caps["K1"] = stack.enter_context(
+                    Capture(torch, emb, "gather_rows"))
+                if topt.get("rmw_impl") == "kernel":
+                    key, attr = (("K6", "apply_line_updates")
+                                 if mc["emb_dim"] < 64 else
+                                 ("K5", "apply_row_updates"))
+                    caps[key] = stack.enter_context(
+                        Capture(torch, tr, attr))
+            for f in counted.values():
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            curve, times, nbytes = mesh_ranks_run(torch, mesh, mc, topt,
+                                                  rows, epochs, dev)
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counted.items()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        errs = mesh_ranks_kernels(torch, name, caps)
+        timed = {}
+        for r in range(mesh.size):           # one rank times at a time
+            barrier(mesh)
+            if r == mesh.rank:
+                timed = mesh_ranks_times(torch, caps)
+        barrier(mesh)
+        out[name] = dict(loss_curve=curve, epoch_times=times,
+                         launches=launches, peak_gb=peak, errs=errs,
+                         times=timed, table_bytes=nbytes)
+        del caps
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_roundtrip():
+    """At world size 1 over NCCL on the card: all_reduce and all_gather
+    return their input."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(12.0, device="cuda").reshape(4, 3)
+    y = x.clone()
+    dist.all_reduce(y)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    return (dist.get_backend(), bool(torch.equal(y, x)),
+            bool(torch.equal(parts[0], x)))
+
+
+def mesh_ranks_phase(torch, dev):
+    """Phase 14: the (data, model) mesh on one card. The 1×1 references
+    first (in this process, the same starts), the cache freed, then the
+    ranks: 4 that share cuda:0 over gloo for (a) split, (a) K5, the
+    control and (c), 2 for (b). Each loss curve is held to its 1×1 run
+    within MESH_RANKS_LOSS_RTOL and the control must exceed it; NCCL round
+    trip at world size 1; each rank's kernels vs plain, times, launches
+    and peak memory. Returns the kernels-line entries (one a kernel and
+    rank)."""
+    from goctr_tpu_torch.core.meshes import launch, single_device_mesh
+
+    from goctr_tpu_torch.core.prng import randn_rows
+
+    t_phase = time.perf_counter()
+    # a shard's rows of a draw, drawn alone, are the whole draw's: across
+    # the halves a draw past 2^31 bytes is cut into, and at (b)'s lines
+    for shape, (a, b) in (((4_500_000, 128), (2_200_000, 2_300_000)),
+                          ((14_285_715, 128), (7_142_858, 14_285_715))):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        whole = torch.randn(shape, generator=gen, device=dev)
+        end = gen.get_offset()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        require(torch.equal(randn_rows(gen, shape, a, b), whole[a:b])
+                and gen.get_offset() == end,
+                f"randn_rows {shape} rows [{a}, {b}) differ from the whole "
+                "draw")
+        del whole
+    torch.cuda.empty_cache()
+    log("[mesh-ranks] randn_rows: rows of a CUDA draw drawn alone equal "
+        "the whole draw's (4.5M x 128, 14.3M x 128)")
+    configs = mesh_ranks_configs()
+    one = single_device_mesh(dev)
+    ref = {}
+    for name, _, mc, topt, rows, epochs in configs:
+        t0 = time.perf_counter()
+        ref[name] = mesh_ranks_run(torch, one, mc, topt, rows, epochs, dev)
+        log(f"[mesh-ranks] 1x1 reference {name}: loss curve {ref[name][0]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    backend, *ok = launch(nccl_roundtrip, 1, [dev], "nccl",
+                          timeout=MESH_RANKS_TIMEOUT_S)[0]
+    require(backend == "nccl" and all(ok),
+            f"mesh ranks: NCCL round trip failed {backend} {ok}")
+    log("[mesh-ranks] NCCL at world size 1: all_reduce and all_gather "
+        "round-trip on the card")
+    if torch.cuda.device_count() >= 2:
+        n = 4 if torch.cuda.device_count() >= 4 else 2
+        spec = (2, 2) if n == 4 else (1, 2)
+        devs = [torch.device("cuda", i) for i in range(n)]
+        want = ref["a-split"][0]
+        for r, got in enumerate(launch(mesh_rank_nccl, n, devs, "nccl",
+                                       args=(spec,),
+                                       timeout=MESH_RANKS_TIMEOUT_S)):
+            require(len(got) == len(want),
+                    f"mesh ranks (a) over NCCL rank {r}: {len(got)} epochs, "
+                    f"1x1 {len(want)}")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            require(rel <= MESH_RANKS_LOSS_RTOL,
+                    f"mesh ranks (a) over NCCL rank {r}: loss curve {got} vs "
+                    f"1x1 {want} (rel {rel:.3g} > {MESH_RANKS_LOSS_RTOL})")
+            log(f"[mesh-ranks] (a) split over NCCL on {n} cards {spec} rank "
+                f"{r}: loss curve {got} (rel diff {rel:.3g} vs 1x1)")
+    else:
+        log("[mesh-ranks] (a) over NCCL with one rank a card: not run, this "
+            "machine has one card (NCCL refuses two ranks on one device)")
+    t0 = time.perf_counter()
+    ranks4 = launch(mesh_rank_main, 4, [dev] * 4, "gloo",
+                    args=((2, 2), ["a-split", "a-kernel", "a-control",
+                                   "c-dense"], str(dev)),
+                    timeout=MESH_RANKS_TIMEOUT_S)
+    t4 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks2 = launch(mesh_rank_main, 2, [dev] * 2, "gloo",
+                    args=((1, 2), ["b-grouped"], str(dev)),
+                    timeout=MESH_RANKS_TIMEOUT_S)
+    t2 = time.perf_counter() - t0
+    rels = {}
+    for name, spec, mc, _, rows, _ in configs:
+        ranks = ranks2 if name == "b-grouped" else ranks4
+        want = ref[name][0]
+        for r in ranks:
+            got = r[name]["loss_curve"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            rels[name] = max(rels.get(name, 0.0), rel)
+            require(rel <= MESH_RANKS_LOSS_RTOL,
+                    f"mesh ranks {name} rank {r['rank']}: loss curve {got} "
+                    f"vs 1x1 {want} (rel {rel:.3g} > {MESH_RANKS_LOSS_RTOL})")
+            path = {"a-split": ("gather_rows", "din_attention_pool",
+                                "din_attention_pool_bwd",
+                                "scatter_rows_packed"),
+                    "a-kernel": ("gather_rows", "apply_row_updates"),
+                    "b-grouped": ("gather_rows", "din_attention_pool",
+                                  "apply_line_updates"),
+                    "c-dense": ("fused_gather_pool", "gather_rows")}[name]
+            la = r[name]["launches"]
+            require(all(la[k] > 0 for k in path),
+                    f"mesh ranks {name} rank {r['rank']}: a kernel of the "
+                    f"path was never launched {la}")
+            log(f"[mesh-ranks] {name} {spec} rank {r['rank']} {r['coords']}:"
+                f" loss curve {got} (rel diff {rel:.3g} vs 1x1), epoch s "
+                f"{r[name]['epoch_times']}, peak {r[name]['peak_gb']:.2f} "
+                f"GB, table {r[name]['table_bytes'] / 1e9:.3f} GB "
+                f"(1x1 {ref[name][2] / 1e9:.3f} GB), kernels vs plain "
+                f"{r[name]['errs']}, launches "
+                f"{ {k: v for k, v in la.items() if v} }")
+        ex = rows * len(want) / sum(ranks[0][name]["epoch_times"])
+        log(f"[mesh-ranks] {name}: {ex:.1f} examples/s over {len(ranks)} "
+            f"ranks sharing one card (host-staged gloo collectives: not a "
+            f"scaling number), 1x1 {rows * len(want) / sum(ref[name][1]):.1f}")
+    ctl = max(abs(r["a-control"]["loss_curve"][0] - ref["a-split"][0][0])
+              / abs(ref["a-split"][0][0]) for r in ranks4)
+    require(ctl > MESH_RANKS_LOSS_RTOL,
+            f"mesh ranks control: loss rel diff {ctl:.3g} is inside the "
+            f"limit {MESH_RANKS_LOSS_RTOL}")
+    log(f"[mesh-ranks] done in {time.perf_counter() - t_phase:.1f} s (4 "
+        f"ranks {t4:.1f} s, 2 ranks {t2:.1f} s): loss rel diff vs 1x1 "
+        f"{rels} (limit {MESH_RANKS_LOSS_RTOL}); control (stage 4 writing "
+        f"each run one row on): rel diff {ctl:.3g}")
+    entries = []
+    for name, key, kname, src, replaces in (
+            ("a-split", "K1", "row_gather", "row_gather.cu",
+             "goctr_tpu/ops/pallas/row_gather.py:74"),
+            ("c-dense", "K3", "gather_pool (sum)", "gather_pool.cu",
+             "goctr_tpu/ops/pallas/embedding_lookup.py:106"),
+            ("a-kernel", "K5", "row_rmw", "row_rmw.cu",
+             "goctr_tpu/ops/pallas/row_optimizer.py:176"),
+            ("b-grouped", "K6", "line_rmw", "row_rmw.cu",
+             "goctr_tpu/ops/pallas/row_optimizer.py:699")):
+        fn = {"K1": "gather_rows", "K3": "fused_gather_pool",
+              "K5": "apply_row_updates", "K6": "apply_line_updates"}[key]
+        spec = dict((c[0], c[1]) for c in configs)[name]
+        for r in (ranks2 if name == "b-grouped" else ranks4):
+            t = r[name]["times"][key]
+            entries.append({
+                "name": f"{kname} (mesh {spec[0]}x{spec[1]} rank "
+                        f"{r['rank']})", "route": "cuda",
+                "source": f"goctr_tpu_torch/csrc/{src}",
+                "replaces": replaces,
+                "launches": r[name]["launches"][fn],
+                "max_abs_err": r[name]["errs"][key], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            log(f"[mesh-ranks] {key} {name} rank {r['rank']} device ms per "
+                f"call: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
+                f"library {t['library_ms']}, bound {t['bound_ms']:.5f} "
+                f"({t['bound_by']})")
+    return entries
+
+
+def mesh_rank_nccl(spec):
+    """(a) split's loss curve on one rank a card over NCCL."""
+    import torch
+
+    from goctr_tpu_torch.core.meshes import MeshSpec, make_mesh
+
+    torch.set_grad_enabled(False)
+    n = spec[0] * spec[1]
+    mesh = make_mesh(MeshSpec(*spec),
+                     devices=[torch.device("cuda", i) for i in range(n)])
+    _, _, mc, topt, rows, epochs = mesh_ranks_configs()[0]
+    return mesh_ranks_run(torch, mesh, mc, topt, rows, epochs,
+                          mesh.device)[0]
+
+
 def main() -> int:
     import torch
 
@@ -4416,6 +4867,10 @@ def main() -> int:
     # 13. the ML-20M-statistics protocol (scripts/parity_ml20m_torch.py) --
     ml20m_entries, ml20m = ml20m_phase(torch, dev)
     ml20m_auc = {k: round(v["auc"], 6) for k, v in ml20m["models"].items()}
+    torch.cuda.empty_cache()
+
+    # 14. the (data, model) mesh on one card: ranks over gloo ---------------
+    mesh_entries = mesh_ranks_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -4480,7 +4935,7 @@ def main() -> int:
          "ms": din_ms, "plain_ms": din_plain_ms, "bound_ms": din_bound_ms,
          "bound_by": din_bound_by, "library_ms": None},
     ] + train_entries + [k3_entry] + dense_entries + pipeline_entries
-        + ml20m_entries}
+        + ml20m_entries + mesh_entries}
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
-from goctr_tpu_torch.core.meshes import single_device_mesh
+from goctr_tpu_torch.core.meshes import Mesh, row_sharded, single_device_mesh
 from goctr_tpu_torch.embedding.dictionary import Dictionary
 from goctr_tpu_torch.embedding.word2vec import Word2Vec, Word2VecOptions
 from goctr_tpu_torch.models.base import SampleInfo
@@ -38,6 +38,7 @@ from goctr_tpu_torch.ops.kernels.row_optimizer import LANES, group_size
 from goctr_tpu_torch.parallel.scanned import TrainedScanned
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 from goctr_tpu_torch.parallel.sparse_trainer import TrainedSparseRanker
+from goctr_tpu_torch.parallel.train import table_state_slots
 
 LAYOUTS = ("plain", "packed", "grouped")
 
@@ -104,29 +105,43 @@ def sparse_ranker_from_jax(model: SparseCTR, flat: dict[str, np.ndarray],
                            opt_state: list[np.ndarray] | None = None,
                            loss_curve: list[float] | None = None,
                            layout: str = "plain",
-                           device: str | torch.device = "cuda"
+                           device: str | torch.device = "cuda",
+                           mesh: Mesh | None = None
                            ) -> TrainedSparseRanker:
     """A JAX TrainedSparseRanker's state as the port's, on the 1×1 mesh
-    of `device`: `flat` dense parameters are loaded into `model` (moved to
-    `device`); `table` is `np.asarray(params["item_table"])` in its
-    `layout` — "plain" [V, D], "packed" [V, 128] (the JAX ranker's
-    table_packed) or "grouped" lines (its packed_group > 1); `acc` its [V]
-    adagrad accumulator; `opt_state` the solver state's leaves in JAX leaf
-    order (on the dense path they include the table's). The result can be
-    passed to train_sparse as resume_from, predict or be saved."""
-    dev = resolve_device(device)
+    of `device`, or on `mesh` (its device): `flat` dense parameters are
+    loaded into `model` (moved to the device); `table` is
+    `np.asarray(params["item_table"])` in its `layout` — "plain" [V, D],
+    "packed" [V, 128] (the JAX ranker's table_packed) or "grouped" lines
+    (its packed_group > 1); `acc` its [V] adagrad accumulator; `opt_state`
+    the solver state's leaves in JAX leaf order (on the dense path they
+    include the table's). On a mesh with m > 1 model shards this rank
+    keeps its rows (or lines) of the table, of acc and of the solver
+    state's table leaves, as JAX shards them over `model`: a ranker of
+    any JAX topology, its table padded to it or not, lands on the mesh's
+    padding (rows or lines padded with zeros to m). The
+    result can be passed to train_sparse as resume_from, predict or be
+    saved."""
+    mesh = mesh or single_device_mesh(device)
+    dev = mesh.device
     d = model.emb_dim
     if layout == "grouped" and group_size(d) == 1:
         raise ValueError(f"emb_dim {d} packs one row a line: not grouped")
     dense, table_t = params_from_jax(flat, table, layout, device=dev)
     model.to(dev)
     model.load_state_dict(dense)
-    acc_t = (torch.from_numpy(np.array(acc, np.float32)).to(dev)
+    def rows(x: torch.Tensor) -> torch.Tensor:
+        return row_sharded(mesh).local(x, 1)
+    acc_t = (rows(torch.from_numpy(np.array(acc, np.float32))).to(dev)
              if acc is not None and np.size(acc) else None)
-    state = (None if opt_state is None else
-             [torch.from_numpy(np.array(x)).to(dev) for x in opt_state])
+    state = None
+    if opt_state is not None:
+        state = [torch.from_numpy(np.array(y)) for y in opt_state]
+        slots = set(table_state_slots(model, state))
+        state = [(rows(x) if i in slots else x).to(dev)
+                 for i, x in enumerate(state)]
     return TrainedSparseRanker(
-        model=model, table=table_t, mesh=single_device_mesh(dev),
+        model=model, table=rows(table_t).contiguous(), mesh=mesh,
         loss_curve=list(loss_curve or []), opt_state=state, acc=acc_t,
         packed_group=group_size(d) if layout == "grouped" else 1,
         table_packed=layout == "packed")

@@ -1,2 +1,3 @@
-from goctr_tpu_torch.core.meshes import MeshSpec, make_mesh
+from goctr_tpu_torch.core.meshes import (
+    MeshSpec, data_axis, make_mesh, model_axis)
 from goctr_tpu_torch.core.prng import PRNGPool

@@ -54,3 +54,89 @@ def _stable_hash(s: str) -> int:
         h ^= b
         h = (h * 0x01000193) & 0xFFFFFFFF
     return h
+
+
+# torch's CUDA normal draw (ATen/native/cuda/DistributionTemplates.h):
+# blocks of 256 threads, at most (threads an SM / 256) blocks an SM; each
+# thread draws 4 floats a Philox call (curand_normal4), which advances the
+# generator's offset by 4; a draw past 2^31 bytes is cut into halves
+# (first halves first) that draw in turn after the whole draw's own
+# increment; each increment is rounded up to a multiple of 4.
+_BLOCK = 256
+_UNROLL = 4
+_MAX_BYTES = 2 ** 31 - 1
+
+
+def _philox_layout(numel: int, sm_count: int, threads_per_sm: int):
+    """The pieces of a CUDA float32 draw of `numel` elements: a list of
+    (first element, elements, Philox offset relative to the draw's start,
+    grid stride in elements), and the offset the whole draw consumes."""
+    cap = sm_count * (threads_per_sm // _BLOCK)
+
+    def stride(n):
+        return _BLOCK * min(cap, -(-n // _BLOCK))
+
+    def increment(n):
+        return -(-n // (stride(n) * _UNROLL)) * 4
+
+    pieces, offset = [], increment(numel)
+    stack = [(0, numel)]
+    if (numel - 1) * 4 + 1 <= _MAX_BYTES:
+        return [(0, numel, 0, stride(numel))], offset
+    offset = increment(numel)
+    while stack:
+        start, n = stack.pop()
+        if (n - 1) * 4 + 1 <= _MAX_BYTES:
+            pieces.append((start, n, offset, stride(n)))
+            offset += increment(n)
+            continue
+        half = n // 2
+        stack.append((start + half, n - half))
+        stack.append((start, half))
+    return pieces, offset
+
+
+def randn_rows(generator: torch.Generator, shape: tuple[int, ...],
+               start: int, stop: int) -> torch.Tensor:
+    """Rows [start, stop) (of dim 0) of `torch.randn(shape, generator=
+    generator)` as float32, on the generator's device, and the generator
+    left as that whole draw leaves it. A CUDA generator draws only those
+    rows and at most a grid stride's worth around them (Philox counters
+    are addressable: the draw of a tensor's elements from a stride
+    boundary on, at the counter offset of that boundary, is the whole
+    draw's); a CPU generator draws the whole tensor."""
+    rows = shape[0]
+    width = 1
+    for x in shape[1:]:
+        width *= x
+    if not 0 <= start <= stop <= rows:
+        raise ValueError(f"rows [{start}, {stop}) are not in [0, {rows})")
+    dev = generator.device
+    if dev.type != "cuda":
+        full = torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=dev)
+        return full[start:stop].clone()
+    props = torch.cuda.get_device_properties(dev)
+    pieces, used = _philox_layout(rows * width, props.multi_processor_count,
+                                  props.max_threads_per_multi_processor)
+    base = generator.get_offset()
+    a, b = start * width, stop * width
+    out = torch.empty((stop - start,) + tuple(shape[1:]), dtype=torch.float32,
+                      device=dev)
+    flat = out.view(-1)
+    for p0, n, off, stride in pieces:
+        lo, hi = max(a, p0), min(b, p0 + n)
+        if lo >= hi:
+            continue
+        span = stride * _UNROLL
+        # from the stride boundary at or before lo, at least one stride
+        e0 = (lo - p0) // span * span
+        e1 = max(hi - p0, min(e0 + stride, n))
+        if e1 - e0 < stride:                   # a piece under one stride
+            e0, e1 = 0, n
+        generator.set_offset(base + off + e0 // span * 4)
+        part = torch.randn(e1 - e0, generator=generator,
+                           dtype=torch.float32, device=dev)
+        flat[lo - a:hi - a] = part[lo - p0 - e0:hi - p0 - e0]
+    generator.set_offset(base + used)
+    return out

@@ -239,9 +239,12 @@ def save_sparse_checkpoint(path, model, dense_params: dict,
 
 
 def load_sparse_checkpoint(path, mesh):
-    """Load a sparse checkpoint written by either package onto `mesh` as a
-    TrainedSparseRanker with a plain [vocab, D] table and its acc; pass it to train_sparse(resume_from
-    =...), which lays the table out for its update mode. The model
+    """Load a sparse checkpoint written by either package (on any mesh)
+    onto `mesh` as a TrainedSparseRanker with a plain [vocab, D] table and
+    its acc — on a mesh with m > 1 model shards, this rank's rows of them
+    padded to m shards (and of the dense path's table moments in the
+    solver state); pass it to train_sparse(resume_from=...), which lays
+    the table out for its update mode. The model
     computes in float32 (the checkpoint does not record the compute
     dtype). The solver state is loaded whenever opt_state.npz exists, and
     with a trainer config it must match the solver's state of either path:
@@ -249,13 +252,15 @@ def load_sparse_checkpoint(path, mesh):
     path). A table_opt's JAX-only fields (gather_impl, pallas_interpret)
     are dropped. Returns (ranker, trainer_config | None, table_opt |
     None)."""
+    from goctr_tpu_torch.core.meshes import row_sharded
     from goctr_tpu_torch.models.trainer import TrainerConfig
     from goctr_tpu_torch.parallel.scanned import (
         _check_opt_state, make_trainer_solver)
     from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
     from goctr_tpu_torch.parallel.sparse_trainer import TrainedSparseRanker
     from goctr_tpu_torch.parallel.table_opt import TableOptConfig
-    from goctr_tpu_torch.parallel.train import dense_path_leaves
+    from goctr_tpu_torch.parallel.train import (
+        dense_path_leaves, table_state_slots)
 
     dev = mesh.device
     path = Path(path)
@@ -268,8 +273,9 @@ def load_sparse_checkpoint(path, mesh):
     with np.load(path / "table.npz") as z:
         w = torch.from_numpy(z["table"].astype(np.float32))
         a = torch.from_numpy(z["acc"].astype(np.float32))
-    table = w.to(dev)           # one model shard: no padding rows
-    acc = a.to(dev) if a.numel() else None
+    rows = row_sharded(mesh)
+    table = rows.local(w, 1).to(dev)
+    acc = rows.local(a, 1).to(dev) if a.numel() else None
     tc = meta.get("trainer_config")
     trainer_config = TrainerConfig(**tc) if tc is not None else None
     to = meta.get("table_opt")
@@ -282,8 +288,11 @@ def load_sparse_checkpoint(path, mesh):
     opt_path = path / "opt_state.npz"
     if opt_path.exists():
         with np.load(opt_path) as z:
-            opt_state = [torch.from_numpy(np.array(z[str(i)])).to(dev)
+            opt_state = [torch.from_numpy(np.array(z[str(i)]))
                          for i in range(len(z.files))]
+        slots = set(table_state_slots(model, opt_state))
+        opt_state = [(rows.local(x, 1) if i in slots else x).to(dev)
+                     for i, x in enumerate(opt_state)]
         if trainer_config is not None:
             solver = make_trainer_solver(trainer_config)
             templates = [solver.init([p.detach().to("meta") for p in leaves])

@@ -57,6 +57,7 @@ import threading
 import numpy as np
 import torch
 
+from goctr_tpu_torch.core.prng import randn_rows
 from goctr_tpu_torch.ops.kernels import _build
 from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 
@@ -146,21 +147,34 @@ def unpack_table_grouped_np(table_lines: np.ndarray, vocab: int, d: int):
 
 
 def init_packed_table_grouped(generator: torch.Generator, vocab: int,
-                              d: int, scale: float = 0.01) -> torch.Tensor:
+                              d: int, scale: float = 0.01,
+                              lines: tuple[int, int] | None = None
+                              ) -> torch.Tensor:
     """Fresh grouped table N(0, scale²) on the weight lanes, zeros
     elsewhere, drawn straight into line layout on the generator's device
-    (no [V, D] intermediate: 100M × 16 is 7.3 GB of lines)."""
+    (no [V, D] intermediate: 100M × 16 is 7.3 GB of lines). `lines`
+    (l0, l1): only lines [l0, l1) of that table, lines past its end
+    zeros (a model shard's lines, drawn without the others)."""
     g = group_size(d)
-    lines = packed_lines(vocab, d)
+    n_lines = packed_lines(vocab, d)
     stride = d + 1
-    table = torch.randn((lines, LANES), generator=generator,
-                        dtype=torch.float32, device=generator.device)
+    if lines is None:
+        l0, l1 = 0, n_lines
+        table = torch.randn((n_lines, LANES), generator=generator,
+                            dtype=torch.float32, device=generator.device)
+    else:
+        l0, l1 = lines
+        table = torch.zeros((l1 - l0, LANES), dtype=torch.float32,
+                            device=generator.device)
+        hi = min(l1, n_lines)
+        if hi > l0:
+            table[:hi - l0] = randn_rows(generator, (n_lines, LANES), l0, hi)
     lane = torch.arange(LANES, device=table.device)
     live = (lane < g * stride) & ((lane % stride) < d)
     table.mul_(scale).masked_fill_(~live, 0.0)
-    tail = lines * g - vocab               # pad rows in the last line
-    if tail:
-        table[-1, (g - tail) * stride:] = 0.0
+    tail = n_lines * g - vocab             # pad rows in the last line
+    if tail and l0 <= n_lines - 1 < l1:
+        table[n_lines - 1 - l0, (g - tail) * stride:] = 0.0
     return table
 
 

@@ -1,22 +1,32 @@
 """Embedding lookups over the (data, model) mesh (port of
 goctr_tpu/parallel/embedding.py: EmbeddingSpec :32-39, init_table :42-49,
-the single-device branches of sharded_lookup :156-168 and
-sharded_pooled_lookup :210-217).
+_local_gather :65-92, _dedup_flat :99-117, sharded_lookup :120-199 and
+sharded_pooled_lookup :202-241).
 
-Only the 1×1 mesh exists in the port (core/meshes.py), so a lookup is a
-local gather: the `shard_map` branches, their psum over `model` and the
-deduplicated exchange `_dedup_flat` come with ROADMAP A5b. On one device
-`lookup_dedup_cap` changes nothing and the overflow count is 0, as in
-JAX.
+On the 1×1 mesh a lookup is a local gather: `lookup_dedup_cap` changes
+nothing and the overflow count is 0, as in JAX. On a larger mesh each
+rank holds its model shard's rows ([V/m, D] rows, or V/(m·G) grouped
+lines) and its data shard's ids, and runs what JAX runs inside
+`shard_map` for one device: the ids are masked to this shard's row range,
+gathered from the local rows (zeros elsewhere) and summed over `model`
+(`psum`: one non-zero row an id, so the sum is exact). With a dedup cap
+each data shard first sorts its ids and exchanges only the <= cap unique
+rows (`_dedup_flat`), and the ids past the cap are counted, summed over
+`data` only (the ids are the same on every model shard).
 
 The gathers are kernel K1 (ops/kernels/row_gather.py) on every layout:
 plain [V, D] rows, packed [V, 128] rows (the first `width` lanes) and
 grouped lines (`group` rows a line; K1 reads the row's lanes where JAX
 takes the line and selects the slot, `_extract_group`). On a plain table
 the gather is differentiable (`TableRows`: backward adds each row's
-gradient at its id into a [V, D] gradient, the transpose of `jnp.take`),
-which the mesh trainer's dense path needs. Mean pooling is kernel K3
-(`GatherPoolMean`); the sum pool gathers and sums.
+gradient at its id into a [V, D] gradient, the transpose of `jnp.take`);
+the psum's backward is the identity, so each shard's rows get exactly
+their own gradient rows, which the mesh trainer's dense path needs. Mean
+pooling on one device is kernel K3 (`GatherPoolMean`); on a larger mesh
+K3 sums the locally masked ids ("sum": out-of-shard ids become pads,
+`GatherPoolSum`), the sums are psummed over `model` and divided by the
+global count of valid ids, as JAX does. The sum pool on one device
+gathers and sums.
 """
 from __future__ import annotations
 
@@ -25,9 +35,12 @@ from typing import Optional
 
 import torch
 
-from goctr_tpu_torch.core.meshes import MODEL_AXIS, Mesh
+from goctr_tpu_torch.core.meshes import (
+    DATA_AXIS, MODEL_AXIS, Mesh, psum, row_sharded,
+)
+from goctr_tpu_torch.core.prng import randn_rows
 from goctr_tpu_torch.ops.kernels.embedding_lookup import (
-    gather_pool_mean, table_grad)
+    fused_gather_pool, gather_pool_mean, table_grad)
 from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 
 
@@ -37,18 +50,24 @@ class EmbeddingSpec:
     vocab: int
     dim: int
 
-    def padded_vocab(self, n_shards: int) -> int:
-        return -(-self.vocab // n_shards) * n_shards
-
 
 def init_table(generator: torch.Generator, spec: EmbeddingSpec,
-               mesh: Optional[Mesh] = None, scale: float = 0.01
-               ) -> torch.Tensor:
-    """[padded_vocab, dim] float32 N(0, scale²) on the generator's
-    device (padded to the mesh's model shards; one without a mesh)."""
-    rows = spec.padded_vocab(mesh.shape[MODEL_AXIS] if mesh else 1)
-    table = torch.randn((rows, spec.dim), generator=generator,
-                        dtype=torch.float32, device=generator.device)
+               mesh: Optional[Mesh] = None, scale: float = 0.01,
+               multiple: int = 1) -> torch.Tensor:
+    """[vocab, dim] float32 N(0, scale²) on the generator's device; on a
+    mesh with m > 1 model shards, this rank's rows of that draw with the
+    vocab padded to a multiple of m·`multiple` rows (the rows past the
+    vocab are zeros)."""
+    m = mesh.shape[MODEL_AXIS] if mesh else 1
+    if m == 1:
+        table = torch.randn((spec.vocab, spec.dim), generator=generator,
+                            dtype=torch.float32, device=generator.device)
+        return table.mul_(scale)
+    r0, per = row_sharded(mesh).span(spec.vocab, multiple)
+    r0, r1 = min(r0, spec.vocab), min(r0 + per, spec.vocab)
+    table = torch.zeros((per, spec.dim), dtype=torch.float32,
+                        device=generator.device)
+    table[:r1 - r0] = randn_rows(generator, (spec.vocab, spec.dim), r0, r1)
     return table.mul_(scale)
 
 
@@ -70,6 +89,63 @@ class TableRows(torch.autograd.Function):
         return table_grad(ids, g, ctx.n_rows), None
 
 
+class GatherPoolSum(torch.autograd.Function):
+    """Trainable sum-pool lookup of a plain table: table [V, D], ids [B, K]
+    (-1 pads) → [B, D]; forward K3 with "sum", backward each valid
+    position's row gets g[b], added into a [V, D] gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return fused_gather_pool(table, ids, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        rows = g[:, None, :].expand(-1, ids.shape[1], -1)
+        return table_grad(ids, rows, ctx.n_rows), None
+
+
+def _gather(table: torch.Tensor, ids: torch.Tensor, width: int,
+            group: int) -> torch.Tensor:
+    """K1 on any layout; differentiable for a plain table."""
+    if group == 1 and not width:
+        return TableRows.apply(table, ids)
+    return gather_rows(table, ids, group=group, dim=width)
+
+
+def _local_gather(local_rows: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
+                  width: int = 0, group: int = 1) -> torch.Tensor:
+    """The rows of ids (>= 0) from this model shard's row range, zeros
+    for the ids of other shards, summed over `model`. local_rows holds
+    local_rows.shape[0]·group rows (grouped lines: `group` rows a line);
+    width > 0 takes each packed row's first `width` lanes before the
+    psum."""
+    per = local_rows.shape[0] * group
+    local = ids - mesh.index(MODEL_AXIS) * per
+    valid = (local >= 0) & (local < per)
+    emb = _gather(local_rows, torch.where(valid, local, 0), width, group)
+    return psum(torch.where(valid[..., None], emb, 0.0), mesh, MODEL_AXIS)
+
+
+def _dedup_flat(flat: torch.Tensor, cap: int):
+    """Static-shape batch dedup: (uniq [cap] — the unique ids ascending,
+    -1 padded; inv [n] — the slot of each position; n_unique — their
+    count). Slots past the cap are dropped from uniq (callers clip inv),
+    as in JAX."""
+    s, order = torch.sort(flat, stable=True)
+    new = torch.cat([torch.ones(1, dtype=torch.bool, device=flat.device),
+                     s[1:] != s[:-1]])
+    slot_sorted = torch.cumsum(new, 0) - 1
+    keep = slot_sorted < cap
+    uniq = flat.new_full((cap,), -1)
+    uniq[slot_sorted[keep]] = s[keep]
+    inv = torch.empty_like(slot_sorted)
+    inv[order] = slot_sorted
+    return uniq, inv, slot_sorted[-1] + 1
+
+
 def sharded_lookup(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
                    dedup_cap: int = 0, with_overflow: bool = False,
                    width: int = 0, group: int = 1):
@@ -77,11 +153,16 @@ def sharded_lookup(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
     (padding) give zero rows. width > 0: the table's rows are packed
     [V, 128] lines and the first `width` lanes are the embedding. group >
     1: the table is grouped lines of `group` rows (width must be the
-    emb dim), ids stay row ids. with_overflow=True returns (out, 0): the
-    one-device lookup is exact. Differentiable with respect to a plain
-    table."""
+    emb dim), ids stay row ids. On a mesh above 1×1, `table` is this
+    rank's model shard and `ids` its data shard's ids (module
+    docstring). with_overflow=True returns (out, overflow): the unique
+    ids past dedup_cap, summed over the data shards (0 on one device,
+    which is exact). Differentiable with respect to a plain table."""
     if group > 1 and not width:
         raise ValueError("grouped lookup requires width=emb_dim")
+    if mesh.size > 1:
+        return _sharded_lookup(table, ids, mesh, dedup_cap, with_overflow,
+                               width, group)
     safe = ids.clamp_min(0)
     if group == 1 and not width:
         emb = TableRows.apply(table, safe)
@@ -93,12 +174,47 @@ def sharded_lookup(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
     return out
 
 
+def _sharded_lookup(table, ids, mesh, dedup_cap, with_overflow, width,
+                    group):
+    """The shard_map branch of JAX's sharded_lookup (:170-199)."""
+    out_dim = width or table.shape[1]
+    if not dedup_cap:
+        out = _local_gather(table, ids.clamp_min(0), mesh, width, group)
+        out = torch.where(ids[..., None] < 0, 0.0, out)
+        over = torch.zeros((), dtype=torch.int32, device=ids.device)
+    else:
+        flat = ids.reshape(-1)
+        cap = min(dedup_cap, flat.shape[0])
+        uniq, inv, n_unique = _dedup_flat(flat, cap)
+        emb_u = _local_gather(table, uniq.clamp_min(0), mesh, width, group)
+        emb_u = torch.where(uniq[:, None] < 0, 0.0, emb_u)
+        out = emb_u[inv.clamp(0, cap - 1)].reshape(*ids.shape, out_dim)
+        # the ids are the same on every model shard: summing over data
+        # alone gives the global count of dropped ids
+        over = psum((n_unique - cap).clamp_min(0).to(torch.int32), mesh,
+                    DATA_AXIS)
+    return (out, over) if with_overflow else out
+
+
 def sharded_pooled_lookup(table: torch.Tensor, ids: torch.Tensor,
                           mesh: Mesh, combiner: str = "mean"
                           ) -> torch.Tensor:
     """Gather + pool of a plain [V, D] table: ids [B, K] (-1 pads) →
-    pooled [B, D] float32. "mean" is kernel K3 (GatherPoolMean), "sum"
-    a differentiable gather and a sum, as in JAX."""
+    pooled [B, D] float32, differentiable with respect to the table. On
+    one device "mean" is kernel K3 (GatherPoolMean), "sum" a
+    differentiable gather and a sum, as in JAX; on a larger mesh K3 sums
+    this shard's rows, the sums are psummed over `model` and "mean"
+    divides by the count of valid ids."""
+    if mesh.size > 1:
+        per = table.shape[0]
+        rel = ids - mesh.index(MODEL_AXIS) * per
+        valid = (ids >= 0) & (rel >= 0) & (rel < per)
+        local = torch.where(valid, rel, -1).to(torch.int32).contiguous()
+        pooled = psum(GatherPoolSum.apply(table, local), mesh, MODEL_AXIS)
+        if combiner == "mean":
+            count = (ids >= 0).to(torch.float32).sum(1, keepdim=True)
+            pooled = pooled / count.clamp_min(1.0)
+        return pooled
     if combiner == "mean":
         return gather_pool_mean(table, ids)
     valid = (ids >= 0).to(table.dtype)

@@ -1,5 +1,5 @@
 """SparseCTR — item-id embeddings, DIN attention pool, dense tower
-(port of goctr_tpu/parallel/sparse_ctr.py:28-188 on the 1×1 mesh).
+(port of goctr_tpu/parallel/sparse_ctr.py:28-188).
 
 The module owns the dense parameters under the JAX package's names
 (`att0`, `mlp.<i>`, `bias.<i>` in `state_dict()`, float32); the item
@@ -12,7 +12,9 @@ pooled in float32, the result cast to the compute dtype); every other
 case gathers the rows (K1) and calls `apply_pooled`, which casts the
 rows to the compute dtype first and pools there. The mesh trainer's
 dense path and plain-table predict take the first; its sparse path, and
-predict on packed or grouped tables, the second.
+predict on packed or grouped tables, the second. On a mesh above 1×1 the
+table is this rank's model shard and the batch its data shard's rows
+(parallel/embedding.py): the pools and the tower run on B/d rows.
 
 Numerics follow the JAX dtype policy: activations in `compute_dtype`,
 every tower matmul takes compute-dtype operands and returns float32
@@ -38,7 +40,7 @@ import torch
 from torch import nn
 
 from goctr_tpu_torch.core.dtypes import resolve_device
-from goctr_tpu_torch.core.meshes import Mesh
+from goctr_tpu_torch.core.meshes import MODEL_AXIS, Mesh, row_sharded
 from goctr_tpu_torch.models.base import dropout, glorot
 from goctr_tpu_torch.ops.activations import ACTIVATIONS
 from goctr_tpu_torch.ops.kernels.din_attention import DinAttentionPool
@@ -126,21 +128,33 @@ class SparseCTR(nn.Module):
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator,
-                    table_group: int = 1) -> torch.Tensor:
+                    mesh: Mesh | None = None,
+                    table_group: int = 1, row_multiple: int = 1
+                    ) -> torch.Tensor:
         """Draw fresh dense parameters (glorot weights, zero biases,
         att0 = 1) from `generator` and return a fresh item table on the
         generator's device: [V, D] N(0, 0.01²), or with table_group > 1
-        grouped lines [ceil(V/G), 128] drawn straight into line layout."""
+        grouped lines [ceil(V/G), 128] drawn straight into line layout.
+        On a mesh with m > 1 model shards: this rank's rows of that table,
+        the vocab padded to m·row_multiple rows (plain) or to m·G rows
+        (lines), as in JAX; the values are the 1×1 draw's, pad rows
+        zero."""
         dims = self.layer_dims
         for i, w in enumerate(self.mlp):
             w.copy_(glorot(generator, (dims[i], dims[i + 1])))
         for b in self.bias:
             b.zero_()
         self.att0.fill_(1.0)
-        if table_group > 1:
+        m = mesh.shape[MODEL_AXIS] if mesh is not None else 1
+        if table_group > 1 and m == 1:
             return init_packed_table_grouped(generator, self.item_vocab,
                                              self.emb_dim)
-        return init_table(generator, self.spec)
+        if table_group > 1:
+            r0, per = row_sharded(mesh).span(self.item_vocab, table_group)
+            return init_packed_table_grouped(
+                generator, self.item_vocab, self.emb_dim,
+                lines=(r0 // table_group, (r0 + per) // table_group))
+        return init_table(generator, self.spec, mesh, multiple=row_multiple)
 
     def param_leaves(self) -> list[nn.Parameter]:
         """The dense parameters in JAX leaf order (att0, bias.*, mlp.*):

@@ -1,6 +1,5 @@
-"""The mesh trainer `train_sparse` on the 1×1 mesh, its result
-`TrainedSparseRanker` and the raw-id sample (port of
-goctr_tpu/parallel/sparse_trainer.py).
+"""The mesh trainer `train_sparse`, its result `TrainedSparseRanker` and
+the raw-id sample (port of goctr_tpu/parallel/sparse_trainer.py).
 
 The sample is copied to the device once (`_device_sample`); each step
 gathers its rows there by the host shuffle's indices (`_put_batch`), so
@@ -29,6 +28,21 @@ the first epoch of the uninterrupted run (parallel/scanned.py); they
 cannot match JAX's threefry streams, but a run resumed after k epochs
 replays the shuffle, the dropout and the early-stop state and continues
 the uninterrupted run bit for bit.
+
+On a mesh above 1×1 (one process a rank, core/meshes.py) every rank draws
+the same permutation and takes its data shard's rows of each padded
+global batch (the batch size divisible by d, as in JAX); each rank draws
+the fresh parameters from the same stream and keeps its model shard's
+rows of the table (the vocab padded to m, or to m·G on grouped lines,
+which a resident run draws shard by shard); dropout masks come from a
+stream of the rank's data index. The grouped lines unpack shard by shard
+at the end, with no cross-shard traffic. `predict` gathers the scores
+over `data`, so every rank returns all n; `save` assembles the plain
+table and accumulator over `model`, rank 0 writes and the others wait.
+A resume_from on such a mesh holds this rank's shard (a ranker of the
+same mesh shape: a finished run, a snapshot, load_sparse_checkpoint or
+convert.sparse_ranker_from_jax); a change of layout gathers its plain
+rows over `model` first.
 """
 from __future__ import annotations
 
@@ -40,18 +54,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from goctr_tpu_torch.core.meshes import DATA_AXIS, Mesh
+from goctr_tpu_torch.core.meshes import (
+    DATA_AXIS, MODEL_AXIS, Mesh, all_gather, barrier, row_sharded,
+)
 from goctr_tpu_torch.models.trainer import TrainerConfig
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
     group_size, pack_table, pack_table_grouped, unpack_table,
-    unpack_table_grouped, unpack_table_grouped_np,
+    unpack_table_grouped,
 )
 from goctr_tpu_torch.parallel import scanned
 from goctr_tpu_torch.parallel.sparse_ctr import SparseBatch, SparseCTR
 from goctr_tpu_torch.parallel.table_opt import TableOptConfig
 from goctr_tpu_torch.parallel.train import (
-    dense_path_leaves, make_sharded_predict, make_sharded_sparse_train_step,
-    make_sharded_train_step,
+    dense_path_leaves, local_batch, make_sharded_predict,
+    make_sharded_sparse_train_step, make_sharded_train_step,
+    table_state_slots,
 )
 
 log = logging.getLogger(__name__)
@@ -101,17 +118,22 @@ class TrainedSparseRanker:
         [vocab] acc whatever the layout, dense parameters, solver state,
         loss curve and the configs needed to resume."""
         from goctr_tpu_torch.models.io import save_sparse_checkpoint
-        w, a = _host_export_table(self.table, self.acc,
-                                  self.model.item_vocab, self.model.emb_dim,
-                                  self.packed_group, self.table_packed)
-        save_sparse_checkpoint(path, self.model, self.model.state_dict(), w,
-                               a, self.loss_curve, opt_state=self.opt_state,
-                               trainer_config=trainer_config,
-                               table_opt=table_opt)
+        w, a = _gathered_table(self.table, self.acc, self.mesh,
+                               self.model.item_vocab, self.model.emb_dim,
+                               self.packed_group, self.table_packed)
+        state = _gathered_state(self.opt_state, self.model, self.mesh)
+        if self.mesh.rank == 0:
+            save_sparse_checkpoint(path, self.model,
+                                   self.model.state_dict(), w, a,
+                                   self.loss_curve, opt_state=state,
+                                   trainer_config=trainer_config,
+                                   table_opt=table_opt)
+        barrier(self.mesh)
 
     def predict(self, sample: SparseSample, batch_size: int = 8192
                 ) -> np.ndarray:
-        """Click probabilities [N] (the last batch padded, as in JAX)."""
+        """Click probabilities [N] (the last batch padded, as in JAX); on
+        a mesh above 1×1 every rank returns all N."""
         fn = make_sharded_predict(self.model, self.mesh,
                                   table_group=self.packed_group,
                                   table_packed=self.table_packed)
@@ -122,24 +144,45 @@ class TrainedSparseRanker:
         out = np.empty(n, np.float32)
         for s in range(0, n, bs):
             e = min(s + bs, n)
-            batch = _put_batch(data, slice(s, e), bs - (e - s))
-            out[s:e] = fn(self.table, batch).cpu().numpy()[:e - s]
+            batch = local_batch(_put_batch(data, slice(s, e), bs - (e - s)),
+                                self.mesh)
+            scores = all_gather(fn(self.table, batch), self.mesh, DATA_AXIS)
+            out[s:e] = scores.cpu().numpy()[:e - s]
         return out
 
 
-def _host_export_table(table: torch.Tensor, acc: Optional[torch.Tensor],
-                       vocab: int, d: int, packed_group: int,
-                       table_packed: bool):
-    """Any table layout → plain host ([vocab, D] w, [vocab] acc)."""
+def _plain_rows(table: torch.Tensor, acc: Optional[torch.Tensor], d: int,
+                packed_group: int, table_packed: bool):
+    """This shard's rows of any table layout as ([rows, D] w, [rows] acc)
+    on its device."""
     table = table.detach()
     if packed_group > 1:
-        return unpack_table_grouped_np(table.cpu().numpy(), vocab, d)
+        return unpack_table_grouped(table, table.shape[0] * packed_group, d)
     if table_packed:
-        return (table[:vocab, :d].cpu().numpy(),
-                table[:vocab, d].cpu().numpy())
-    a = (acc[:vocab].cpu().numpy() if acc is not None
-         else np.zeros(vocab, np.float32))
-    return table[:vocab].cpu().numpy(), a
+        return unpack_table(table, d)
+    return table, (acc if acc is not None
+                   else torch.zeros(table.shape[0], device=table.device))
+
+
+def _gathered_table(table, acc, mesh: Mesh, vocab: int, d: int,
+                    packed_group: int, table_packed: bool):
+    """The plain host ([vocab, D] w, [vocab] acc) from every model
+    shard's rows (a collective: every rank calls it)."""
+    w, a = _plain_rows(table, acc, d, packed_group, table_packed)
+    rows = row_sharded(mesh)
+    return (rows.gather(w, vocab).cpu().clone().numpy(),
+            rows.gather(a, vocab).cpu().clone().numpy())
+
+
+def _gathered_state(state, model: SparseCTR, mesh: Mesh):
+    """The solver state with the table's leaves (the dense path's table
+    moments) gathered over `model` and cut to the vocab."""
+    if state is None:
+        return None
+    slots = set(table_state_slots(model, state))
+    rows = row_sharded(mesh)
+    return [rows.gather(x, model.item_vocab) if i in slots else x
+            for i, x in enumerate(state)]
 
 
 _BATCH_TYPES = {"user_profile": np.float32, "behavior_ids": np.int32,
@@ -171,23 +214,28 @@ def _put_batch(data: dict[str, torch.Tensor], sel, pad: int
     return SparseBatch(**{name: take(name) for name in _BATCH_TYPES})
 
 
-def _start_table(model: SparseCTR, resume_from, dev: torch.device,
+def _start_table(model: SparseCTR, resume_from, mesh: Mesh,
                  cfg: TrainerConfig, sparse: bool, packed: bool, g: int,
                  resident: bool):
     """(table, acc) as the run trains them, fresh tensors: from
     resume_from's table in any layout, or drawn from the seed."""
     d = model.emb_dim
+    dev = mesh.device
+    m = mesh.shape[MODEL_AXIS]
+    multiple = g if packed else 1          # rows a shard is padded to
     if resume_from is None:
         gen = scanned.trainer_generator(cfg, 0, dev)
         if resident:
-            return model.init_params(gen, table_group=g), None
-        w = model.init_params(gen)
+            return model.init_params(gen, mesh, table_group=g), None
+        w = model.init_params(gen, mesh, row_multiple=multiple)
         a = None
     elif resume_from.packed_group > 1 and g == resume_from.packed_group:
         return resume_from.table.to(dev, copy=True), None   # lines stay
     else:
         r = resume_from
-        if r.packed_group > 1:
+        if m > 1:
+            w, a = _reshard_rows(r, mesh, d, multiple)
+        elif r.packed_group > 1:
             w, a = unpack_table_grouped(r.table.to(dev),
                                         r.table.shape[0] * r.packed_group, d)
         elif r.table_packed:
@@ -207,13 +255,34 @@ def _start_table(model: SparseCTR, resume_from, dev: torch.device,
     return w, a.clone()
 
 
+def _reshard_rows(r: TrainedSparseRanker, mesh: Mesh, d: int,
+                  multiple: int):
+    """This rank's plain (w, a) rows for a layout padded to m·multiple
+    rows, from resume_from's shards: in place when its rows already are
+    that range, else gathered over `model` and cut."""
+    if r.mesh.shape != mesh.shape:
+        raise ValueError(f"resume_from lies on a {r.mesh.shape} mesh, the "
+                         f"run on {mesh.shape}: load it from a checkpoint")
+    w, a = _plain_rows(r.table.to(mesh.device), r.acc, d, r.packed_group,
+                       r.table_packed)
+    a = a.to(mesh.device)
+    rows = row_sharded(mesh)
+    v = r.model.item_vocab
+    if w.shape[0] == rows.span(v, multiple)[1]:
+        return w, a
+    return (rows.local(rows.gather(w, v), multiple),
+            rows.local(rows.gather(a, v), multiple))
+
+
 def train_sparse(model: SparseCTR, sample: SparseSample, mesh: Mesh,
                  cfg: Optional[TrainerConfig] = None,
                  table_opt: Optional[TableOptConfig] = None,
                  resume_from: Optional[TrainedSparseRanker] = None,
                  checkpoint_every: int = 0, checkpoint_path=None,
                  epoch_hook=None) -> TrainedSparseRanker:
-    """Train `model` on `sample` over `mesh` (1×1: the mesh's device).
+    """Train `model` on `sample` over `mesh`: on 1×1 the mesh's device,
+    above it this rank's shards (module docstring; every rank calls it
+    with the same arguments).
 
     table_opt=None: the dense path (the table trained by the tower's
     solver). A TableOptConfig: sparse row-wise updates (its update_mode,
@@ -255,8 +324,8 @@ def train_sparse(model: SparseCTR, sample: SparseSample, mesh: Mesh,
     done_epochs = len(prev_curve)
     if resume_from is not None and resume_from.model is not model:
         model.load_state_dict(resume_from.model.state_dict())
-    table, acc = _start_table(model, resume_from, dev, cfg, sparse, packed,
-                              g, resident)
+    table, acc = _start_table(model, resume_from, mesh, cfg, sparse,
+                              packed, g, resident)
     leaves = (model.param_leaves() if sparse
               else dense_path_leaves(model, table))
     if resume_from is not None and resume_from.opt_state is not None:
@@ -297,12 +366,15 @@ def train_sparse(model: SparseCTR, sample: SparseSample, mesh: Mesh,
         order = torch.from_numpy(rng.permutation(n) if cfg.shuffle
                                  else np.arange(n)).to(dev)
         gen = scanned.trainer_generator(cfg, done_epochs + epoch + 1, dev)
+        if mesh.index(DATA_AXIS):               # this data shard's masks
+            gen.manual_seed(gen.initial_seed()
+                            ^ (mesh.index(DATA_AXIS) << 40))
         tot = torch.zeros((), dtype=torch.float64, device=dev)
         overs = [torch.zeros((), dtype=torch.int32, device=dev)]
         for b in range(n_batches):
             idx = order[b * bs:(b + 1) * bs]
             size = idx.shape[0]
-            batch = _put_batch(data, idx, bs - size)
+            batch = local_batch(_put_batch(data, idx, bs - size), mesh)
             if sparse:
                 loss, opt_state, over = step(table, opt_state, acc, batch,
                                              gen)

@@ -709,3 +709,69 @@ def test_neural_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(curves[1], curves[0], rtol=1e-5)
     np.testing.assert_allclose(nets[1].predict(X), nets[0].predict(X),
                                atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [(1, 2), (2, 1)])
+def test_mesh_step_on_shared_card_matches_1x1(cuda, spec):
+    """Two ranks share the card over gloo (the collectives staged through
+    pinned host memory) and run one sparse step, fused with the one-pass
+    row update (K5) at D = 64, from the same start as the 1×1 step on the
+    card: every array within atol 1e-6 (on one data shard the stream is
+    the 1×1 stream; on two, its row sums add in another order)."""
+    from goctr_tpu_torch.core.meshes import launch, single_device_mesh
+    from goctr_tpu_torch.parallel.mesh_cases import rank_cases, run_case
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+
+    v, t, n = 512, 5, 256
+    mc = dict(item_vocab=v, emb_dim=64, u_profile_dim=4, ctx_dim=2,
+              behavior_len=t, hidden=(16,))
+    rng = np.random.default_rng(5)
+    model = SparseCTR(**mc, device="cpu")
+    table = model.init_params(torch.Generator().manual_seed(5))
+    case = dict(kind="sparse_steps", model=mc, lr=1e-3,
+                dense={k: x.numpy() for k, x in model.state_dict().items()},
+                table=table.numpy(), table_opt=dict(
+                    kind="adagrad", lr=0.05, update_mode="fused",
+                    rmw_impl="kernel"),
+                batches=[dict(
+                    user_profile=rng.random((n, 4)).astype(np.float32),
+                    behavior_ids=rng.integers(-1, v, (n, t)).astype(np.int32),
+                    item_ids=rng.integers(0, v, n).astype(np.int32),
+                    ctx=rng.random((n, 2)).astype(np.float32),
+                    labels=(rng.random(n) > 0.5).astype(np.float32))])
+    want = run_case(case, single_device_mesh(cuda))["steps"][0]
+    got = launch(rank_cases, 2, ["cuda:0"] * 2, "gloo",
+                 args=(["cuda:0"] * 2, [(spec, [case])]), timeout=300)
+    for rank in got:
+        step = rank[0][0]["steps"][0]
+        assert step["overflow"] == want["overflow"] == 0
+        np.testing.assert_allclose(step["loss"], want["loss"], rtol=0,
+                                   atol=1e-6)
+        for key in ("table", "acc"):
+            np.testing.assert_allclose(step[key], want[key], rtol=0,
+                                       atol=1e-6)
+        for k, x in want["dense"].items():
+            np.testing.assert_allclose(step["dense"][k], x, rtol=0,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_randn_rows_on_the_card_equal_the_whole_draw(cuda):
+    """A shard's rows of a CUDA randn drawn alone equal the whole draw's
+    rows, and leave the generator where the whole draw does: draws under
+    one grid stride, over it, and past 2^31 bytes (cut into halves)."""
+    from goctr_tpu_torch.core.prng import randn_rows
+
+    for shape, ranges in (((1000, 128), [(100, 700), (999, 1000)]),
+                          ((100_000, 64), [(30_000, 70_000), (0, 5)]),
+                          ((4_500_000, 128), [(2_200_000, 2_300_000),
+                                              (0, 100)])):
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        whole = torch.randn(shape, generator=gen, device=cuda)
+        end = gen.get_offset()
+        for a, b in ranges:
+            g = torch.Generator(device=cuda).manual_seed(7)
+            assert torch.equal(randn_rows(g, shape, a, b), whole[a:b])
+            assert g.get_offset() == end
+        del whole

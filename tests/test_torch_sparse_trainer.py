@@ -1,4 +1,5 @@
-"""The port's mesh trainer (train_sparse on the 1×1 mesh), its lookups,
+"""The port's mesh trainer (train_sparse on the 1×1 mesh; meshes above
+it in tests/test_torch_mesh.py), its lookups,
 SparseCTR.apply, predict and sparse checkpoints against the JAX package
 on the CPU. The JAX side runs on make_mesh(MeshSpec(1, 1),
 devices=jax.devices()[:1]); its fresh state (TrainerConfig(epochs=0))
@@ -498,14 +499,17 @@ def test_load_refuses_a_foreign_solver_state(tmp_path):
 
 # ------------------------------------------------------------- meshes --
 def test_meshes_above_1x1_raise():
-    with pytest.raises(NotImplementedError, match="A5b"):
-        make_mesh(MeshSpec(data=2, model=1), devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A5b"):
+    """Without a process group the world is one rank: a mesh of more
+    ranks raises ValueError, as a spec that does not resolve does
+    (tests/test_torch_mesh.py runs the meshes above 1×1 on gloo ranks)."""
+    with pytest.raises(ValueError, match="2x1 != 1 devices"):
+        make_mesh(MeshSpec(data=2, model=1), devices=["cpu"])
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         make_mesh(devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        Mesh(1, 2, torch.device("cpu"))
     with pytest.raises(ValueError, match="not divisible"):
         make_mesh(MeshSpec(model=3), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="process group"):
+        Mesh(1, 2, torch.device("cpu"))
     m = make_mesh(MeshSpec(data=1, model=1), devices=["cpu"])
     assert m == PMESH and m.shape == {"data": 1, "model": 1}
 
