@@ -186,7 +186,10 @@ Phases, in order; any failure raises and the script exits nonzero:
                and timed one rank at a time, peak memory. NCCL round-trips
                all_reduce and all_gather at world size 1; with two or more
                cards (a) runs one rank a card over NCCL, else a line says
-               why not.
+               why not. Then one `[rmw-share]` line a kernel for K5 and
+               K6: the share of real slots in its stream, its time, bound
+               and share of the bound on the scanned trainer's first step
+               (phases 6, 7) and on each rank's stage-4 stream.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
@@ -1506,7 +1509,7 @@ def time_train_kernels(torch, step):
                            iters=6),
         split_ms=device_ms(torch, lambda i: split(table, tgt, upd, **kw), 1),
         library_ms=None, bytes=tgt.numel() * 4 + n_real * live_bytes * 3,
-        flops=n_real * live * 8)
+        flops=n_real * live * 8, slots=tgt.numel(), real=n_real)
     for key, r in out.items():
         r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
                             r["flops"] / F32_FLOPS_PER_S) * 1e3
@@ -4405,7 +4408,8 @@ def mesh_ranks_times(torch, caps):
                      library_ms=None,
                      bytes=ids.numel() * 4 + n_real * (-(-4 * live // 32)
                                                        * 32) * 3,
-                     flops=n_real * live * 8)
+                     flops=n_real * live * 8, slots=ids.numel(),
+                     real=n_real)
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"))
         out[key] = r
     return out
@@ -4507,7 +4511,7 @@ def mesh_ranks_phase(torch, dev):
     within MESH_RANKS_LOSS_RTOL and the control must exceed it; NCCL round
     trip at world size 1; each rank's kernels vs plain, times, launches
     and peak memory. Returns the kernels-line entries (one a kernel and
-    rank)."""
+    rank) and {"K5" / "K6": [(mesh and rank, readings)]}."""
     from goctr_tpu_torch.core.meshes import launch, single_device_mesh
 
     from goctr_tpu_torch.core.prng import randn_rows
@@ -4617,7 +4621,7 @@ def mesh_ranks_phase(torch, dev):
         f"ranks {t4:.1f} s, 2 ranks {t2:.1f} s): loss rel diff vs 1x1 "
         f"{rels} (limit {MESH_RANKS_LOSS_RTOL}); control (stage 4 writing "
         f"each run one row on): rel diff {ctl:.3g}")
-    entries = []
+    entries, rmw = [], {"K5": [], "K6": []}
     for name, key, kname, src, replaces in (
             ("a-split", "K1", "row_gather", "row_gather.cu",
              "goctr_tpu/ops/pallas/row_gather.py:74"),
@@ -4645,7 +4649,24 @@ def mesh_ranks_phase(torch, dev):
                 f"call: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
                 f"library {t['library_ms']}, bound {t['bound_ms']:.5f} "
                 f"({t['bound_by']})")
-    return entries
+            if key in rmw:
+                rmw[key].append((f"mesh {spec[0]}x{spec[1]} rank "
+                                 f"{r['rank']}", t))
+    return entries, rmw
+
+
+def rmw_share_lines(headline, mesh):
+    """One line a kernel (K5, K6): its real-slot share, device ms per
+    call, bound and share of the bound on the scanned trainer's first
+    step (phases 6 and 7) and on each mesh rank's stage-4 stream (phase
+    14), all of this run."""
+    for key, head in headline.items():
+        log(f"[rmw-share] {key}: " + "; ".join(
+            f"{label} {t['real']} real of {t['slots']} slots "
+            f"({100 * t['real'] / t['slots']:.1f}%), {t['ms']:.5f} ms, "
+            f"bound {t['bound_ms']:.5f}, {100 * t['bound_ms'] / t['ms']:.1f}% "
+            f"of the bound"
+            for label, t in [("scanned trainer", head), *mesh[key]]))
 
 
 def mesh_rank_nccl(spec):
@@ -4870,7 +4891,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14. the (data, model) mesh on one card: ranks over gloo ---------------
-    mesh_entries = mesh_ranks_phase(torch, dev)
+    mesh_entries, mesh_rmw = mesh_ranks_phase(torch, dev)
+    rmw_share_lines({"K5": t6["K5"], "K6": t7["K6"]}, mesh_rmw)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []

@@ -31,7 +31,8 @@ Two ways to apply one batch's update rows, the same arithmetic in f32
   * one pass (rmw_impl="kernel"): kernel K5 (`apply_row_updates`) on
     packed rows, kernel K6 (`apply_line_updates`) on grouped lines, both
     in csrc/row_rmw.cu: each line is read, updated and written back by
-    one warp.
+    one warp, and only the real slots' lines are loaded (a persistent
+    grid that lists each tile's real slots first).
 
 update_mode="fused2" takes the sorted stream with its duplicates and
 one cumsum of its rows instead: kernel K7 (`apply_csum_updates`,

@@ -217,6 +217,47 @@ def jax_chunk(x: torch.Tensor, n_b: int, mesh: Mesh) -> torch.Tensor:
     return batch_sharded(mesh).local(stream)
 
 
+def compact_stream(ids: torch.Tensor, grads: torch.Tensor, v: int,
+                   cap: Optional[int]):
+    """Stage 1 of the mesh's table update, on one data shard's flat row
+    gradients (ids [n] int32, -1 pads; grads [n, D]): dedup + compact
+    (pads → id v, padded to 1024, a stable sort, run sums as differences
+    of run-end cumsum rows, the first `cap` run ends selected by a rank
+    sort; cap None or 0: every slot). Its non-real slots carry junk ids
+    past v where JAX's carry v: stage 3 sorts both after the real ids and
+    gives them zero rows. Returns (ids, rows, dropped count)."""
+    s_ids, g_s = sort_updates(ids, grads, v)
+    return _compact_xla(s_ids, g_s, v,
+                        compact_slots(cap or s_ids.shape[0], s_ids.shape[0]))
+
+
+def shard_stream(u_ids: torch.Tensor, u_rows: torch.Tensor, v: int,
+                 per_shard: int, shard: int, group: int, packed: bool):
+    """Stages 3 and 4 of the mesh's table update: the data shards'
+    compacted streams, gathered (u_ids [d·cap], u_rows [d·cap, D]), merged
+    by id, and model shard `shard`'s update stream of them. The other
+    shard's ids and the junk become distinct ids at or above the shard's
+    row count, with zero rows. Returns (ids, rows, skip_ge): for packed
+    lines (group > 1) `line_stream`'s line ids and [n, 128] rows; for
+    packed rows local ids and `pack_grads` rows; else local ids and the
+    [n, D] rows."""
+    # ---- stage 3: merge duplicate ids across data shards
+    u_ids, u_rows = _pad_to(u_ids, 1024, v), _pad_to(u_rows, 1024, 0.0)
+    order = torch.sort(u_ids, stable=True).indices
+    tgt, rows = sorted_run_sums(u_ids[order], u_rows[order], junk_base=v + 1)
+    # ---- stage 4: this shard's rows
+    rel = tgt - shard * per_shard
+    mine = (tgt < v) & (rel >= 0) & (rel < per_shard)
+    rows = torch.where(mine[:, None], rows, 0.0)
+    if packed and group > 1:
+        ltgt, lrows = line_stream(torch.where(mine, rel, per_shard), rows,
+                                  per_shard)
+        return ltgt, lrows, per_shard // group
+    pos = torch.arange(tgt.shape[0], dtype=torch.int32, device=tgt.device)
+    lid = torch.where(mine, rel, per_shard + 1 + pos).to(torch.int32)
+    return lid, pack_grads(rows) if packed else rows, per_shard
+
+
 def make_sharded_sparse_train_step(model: SparseCTR, solver: Solver,
                                    mesh: Mesh, topt: TableOptConfig
                                    ) -> Callable:
@@ -240,46 +281,25 @@ def make_sharded_sparse_train_step(model: SparseCTR, solver: Solver,
         row gradients. Returns the overflow count."""
         per_shard = table.shape[0] * g             # rows on this shard
         v = per_shard * mesh.shape[MODEL_AXIS]     # padded vocab
-        shard = mesh.index(MODEL_AXIS)
-        # ---- stage 1: dedup + compact (pads → id v, padded to 1024, a
-        # stable sort, run sums as differences of run-end cumsum rows, the
-        # first `cap` run ends selected by a rank sort). Its non-real
-        # slots carry junk ids past v where JAX's carry v: stage 3 sorts
-        # both after the real ids and gives them zero rows.
-        s_ids, g_s = sort_updates(ids, grads, v)
-        cap = compact_slots(topt.exchange_cap or s_ids.shape[0],
-                            s_ids.shape[0])
-        u_ids, u_rows, over = _compact_xla(s_ids, g_s, v, cap)
+        # ---- stage 1: dedup + compact
+        u_ids, u_rows, over = compact_stream(ids, grads, v,
+                                             topt.exchange_cap)
         # the ids are the same on every model shard: summing over data
         # alone gives the global dropped count (ADVICE r4)
         over = psum(over, mesh, DATA_AXIS)
         # ---- stage 2: all_gather of the compacted streams over `data`
         u_ids = all_gather(u_ids, mesh, DATA_AXIS)
         u_rows = all_gather(u_rows, mesh, DATA_AXIS)
-        # ---- stage 3: merge duplicate ids across data shards
-        u_ids, u_rows = _pad_to(u_ids, 1024, v), _pad_to(u_rows, 1024, 0.0)
-        order = torch.sort(u_ids, stable=True).indices
-        tgt, rows = sorted_run_sums(u_ids[order], u_rows[order],
-                                    junk_base=v + 1)
-        # ---- stage 4: update this shard's rows; the other ids (and the
-        # junk) become distinct ids at or above the local row count
-        rel = tgt - shard * per_shard
-        mine = (tgt < v) & (rel >= 0) & (rel < per_shard)
-        pos = torch.arange(tgt.shape[0], dtype=torch.int32,
-                           device=tgt.device)
-        rows = torch.where(mine[:, None], rows, 0.0)
-        if packed and g > 1:
-            ltgt, lrows = line_stream(torch.where(mine, rel, per_shard), rows,
-                                      per_shard)
-            impl = (apply_line_updates_split if topt.rmw_impl == "split"
-                    else apply_line_updates)
-            impl(table, ltgt, lrows, skip_ge=table.shape[0], **kw)
-            return over
-        lid = torch.where(mine, rel, per_shard + 1 + pos).to(torch.int32)
+        lid, rows, skip_ge = shard_stream(u_ids, u_rows, v, per_shard,
+                                          mesh.index(MODEL_AXIS), g, packed)
         if packed:
-            impl = (apply_row_updates_split if topt.rmw_impl == "split"
-                    else apply_row_updates)
-            impl(table, lid, pack_grads(rows), skip_ge=per_shard, **kw)
+            split = topt.rmw_impl == "split"
+            if g > 1:
+                impl = (apply_line_updates_split if split
+                        else apply_line_updates)
+            else:
+                impl = apply_row_updates_split if split else apply_row_updates
+            impl(table, lid, rows, skip_ge=skip_ge, **kw)
             return over
         if topt.kind == "adagrad":
             scatter_add_rows(acc[:, None], lid, (rows * rows).sum(1)[:, None])

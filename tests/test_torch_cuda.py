@@ -18,7 +18,8 @@ touched row, and every other row unchanged. K9 returns the same targets and over
 its run sums add the same f32 rows in another order, so each lies within
 1e-5 of the run's sum of |g| (plus 1e-6). K5 and K6 round each term as
 the plain version does; only rsqrtf may differ from torch.rsqrt — rtol
-1e-6, atol 1e-7, and untouched lines bit exact. K7 and K8 take gradient
+1e-6, atol 1e-7, and untouched lines bit exact; under sgd (no rsqrt)
+the lines are bit exact. K7 and K8 take gradient
 rows on a dyadic grid (multiples of 1/16, |g| <= 1/4) and accumulators
 that are multiples of 1/64, so every run sum and cumsum is exact in f32
 whatever the order of its adds: K8's sums in tile order equal the plain
@@ -455,6 +456,144 @@ def test_rmw_kernels_match_plain(cuda, d, grouped, kind, eps):
                  skip_ge=v // 2)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
     assert torch.equal(got[v // 2:], table[v // 2:])
+
+
+def stage4_case(n, lines, skip_ge, share, layout, d, group, seed=0):
+    """A table, an update stream and its rows shaped like one model
+    shard's stage-4 stream of a (data, model) mesh (parallel/train.py),
+    as numpy: (table [lines, 128], ids [n] int32, updates [n, 128]).
+    `share` of the n slots carry real ids (distinct, sorted, in [0,
+    skip_ge)). layout "shard 0": the real ids are the run ends of one
+    stretch of sorted runs (~80% of its slots; the runs' other positions
+    hold junk past the table), followed by the other shard's ids (a third
+    of what is left: ids in [skip_ge, lines) where skip_ge < lines, else
+    junk past the table) and the junk tail of stage 1's unused slots;
+    "shard 1": the other shard's ids come first; "last tile": the real
+    ids lie only in the stream's last 128 slots, its last four 32-slot
+    chunks, which the kernel deals to the last tiles of four blocks.
+    The table holds weights N(0, 0.1²) and accumulators U(0, 1) in each
+    of the line's `group` (w | acc) groups of width d and 7.0 past them;
+    the update rows (Σg | ‖Σg‖²) in each group, -3.0 past them, and zero
+    at skipped slots (stage 4 zeroes them)."""
+    rng = np.random.default_rng(seed)
+    n_real = min(int(round(share * n)), skip_ge)
+    real = np.sort(rng.choice(skip_ge, n_real, replace=False))
+    ids = lines + 1 + np.arange(n)              # junk, past the table
+    if layout == "last tile":
+        pos = n - 1 - np.sort(rng.choice(min(n, 128), n_real,
+                                         replace=False))[::-1]
+    else:
+        stretch = min(n, -(-n_real * 5 // 4))
+        other = (n - stretch) // 3
+        start = 0 if layout == "shard 0" else other
+        pos = start + np.sort(rng.choice(stretch, n_real, replace=False))
+        at = (np.arange(stretch, stretch + other) if layout == "shard 0"
+              else np.arange(other))
+        if skip_ge < lines:
+            ids[at] = rng.integers(skip_ge, lines, at.size)
+    ids[pos] = real
+    stride = d + 1
+    table = np.full((lines, 128), 7.0, np.float32)
+    upd = np.full((n, 128), -3.0, np.float32)
+    for grp in range(group):
+        table[:, grp * stride:grp * stride + d] = rng.normal(0, 0.1,
+                                                             (lines, d))
+        table[:, grp * stride + d] = rng.random(lines)
+        g = rng.normal(0, 0.3, (n, d))
+        upd[:, grp * stride:grp * stride + d] = g
+        upd[:, grp * stride + d] = (g * g).sum(1)
+    upd[(ids < 0) | (ids >= skip_ge), :group * stride] = 0.0
+    return table, ids.astype(np.int32), upd
+
+
+def check_rmw(got, table, ids, want, skip_ge, group, d, exact):
+    """The checks of a K5 / K6 result `got` against the plain version's
+    `want` from the same table: bit for bit (exact) or within rtol 1e-6,
+    atol 1e-7; every line not named by a real slot and every lane past the
+    groups unchanged; every named line changed."""
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    touched = torch.zeros(table.shape[0], dtype=torch.bool,
+                          device=table.device)
+    touched[ids[(ids >= 0) & (ids < skip_ge)].long()] = True
+    assert torch.equal(got[~touched], table[~touched])
+    assert bool((got[touched] != table[touched]).any(1).all())
+    assert bool((got[:, group * (d + 1):] == 7.0).all())
+
+
+# (layout, real share, skip_ge as a share of the lines, slots): stage-4
+# streams at the shares the mesh gives (~12%), the scanned trainer's
+# (~50-100%) and none; real slots only in the stream's last chunks; n not
+# a multiple of a block's 1,024-slot tile or of a 32-slot chunk; skip_ge
+# below the lines (the ids between are skipped) and skip_ge = 0 (every id
+# is skipped). The kernel's grid holds at most the blocks the card keeps
+# resident, and each block works through its tiles in turn: the streams
+# of LONG_STREAM slots and more give every block more than one tile
+# (the next tile's ids loaded while this one's rows are updated), as the
+# mesh's 2,162,688-slot streams do; the shorter ones give each one tile.
+LONG_STREAM = 2_162_688
+STAGE4_STREAMS = [("shard 0", 0.0, 1.0, 50_021),
+                  ("shard 0", 0.12, 1.0, 50_021),
+                  ("shard 1", 0.12, 1.0, 50_021),
+                  ("shard 0", 0.5, 1.0, 50_021),
+                  ("shard 0", 1.0, 1.0, 50_021),
+                  ("last tile", 100 / 50_021, 1.0, 50_021),
+                  ("shard 1", 0.12, 0.9, 50_021),
+                  ("shard 0", 0.12, 0.0, 50_021),
+                  ("shard 1", 0.5, 1.0, 97),
+                  ("shard 0", 0.12, 1.0, LONG_STREAM),
+                  ("last tile", 100 / (LONG_STREAM + 37), 1.0,
+                   LONG_STREAM + 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,eps", [("sgd", 1e-8), ("adagrad", 1e-8),
+                                      ("adagrad", 0.0)])
+@pytest.mark.parametrize("d,grouped", [(64, False), (16, True)],
+                         ids=["K5", "K6"])
+@pytest.mark.parametrize("layout,share,skip,n", STAGE4_STREAMS)
+def test_rmw_kernels_on_stage4_streams(cuda, d, grouped, kind, eps, layout,
+                                       share, skip, n):
+    """K5 (packed rows, d = 64) and K6 (grouped lines, d = 16, G = 7) on
+    stage-4-shaped streams against their plain versions: bit for bit
+    under sgd; under adagrad only rsqrtf and torch.rsqrt may differ (rtol
+    1e-6, atol 1e-7). Lines past skip_ge or not named are unchanged. The
+    control, one real row's line written one line on, fails the check."""
+    group = tro.group_size(d) if grouped else 1
+    if n >= LONG_STREAM:
+        # more slots than 32 chunks of 32 for each block the card can
+        # hold (an SM holds at most 2,048 threads: 8 blocks of 256)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert n > 32 * 32 * 8 * sms
+    lines = max(60_000, n // 4)
+    skip_ge = int(skip * lines)
+    table, ids, upd = (torch.from_numpy(a).to(cuda) for a in stage4_case(
+        n, lines, skip_ge, share, layout, d, group, seed=n + d))
+    wrapper, plain = ((tro.apply_line_updates, tro.apply_line_updates_plain)
+                      if grouped else
+                      (tro.apply_row_updates, tro.apply_row_updates_plain))
+    kw = dict(lr=0.25, d=d, kind=kind, eps=eps, skip_ge=skip_ge)
+    before = wrapper.launches
+    got = wrapper(table.clone(), ids, upd, **kw)
+    want = plain(table.clone(), ids, upd, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    exact = kind == "sgd"
+    check_rmw(got, table, ids, want, skip_ge, group, d, exact)
+    real = ids[(ids >= 0) & (ids < skip_ge)].long()
+    if real.numel() == 0:
+        return
+    # the control: the last real row's new line written one line on
+    named = torch.zeros(lines + 1, dtype=torch.bool, device=cuda)
+    named[real] = True
+    r = int(real[(real + 1 < lines) & ~named[real + 1]][-1])
+    moved = got.clone()
+    moved[r + 1], moved[r] = got[r], table[r]
+    with pytest.raises(AssertionError):
+        check_rmw(moved, table, ids, want, skip_ge, group, d, exact)
 
 
 def _dyadic_stream(vocab, d, dev, n=8192, hot=3000, n_pad=300, seed=8):

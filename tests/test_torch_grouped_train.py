@@ -52,6 +52,7 @@ from goctr_tpu_torch.parallel.scanned import (
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 from goctr_tpu_torch.serve.scorer import DeviceScorer
+from test_torch_cuda import stage4_case
 
 N, T, VOCAB = 3000, 5, 400
 LOSS = dict(rtol=1e-5)
@@ -146,6 +147,42 @@ def test_line_rmw_plain_matches_jax(d, kind):
     assert (got.numpy()[hit] != table[hit]).any(1).all()
     np.testing.assert_array_equal(got.numpy()[~hit], table[~hit])
     assert tro.apply_line_updates.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["adagrad", "sgd"])
+@pytest.mark.parametrize("d,grouped", [(64, False), (16, True)],
+                         ids=["K5", "K6"])
+def test_rmw_plain_matches_jax_on_stage4_streams(d, grouped, kind):
+    """K5 (packed rows) and K6 (grouped lines, G = 7) on a stream shaped
+    like one model shard's stage-4 stream of a mesh, the case the CUDA
+    kernels are designed for (tests/test_torch_cuda.py `stage4_case`: 12%
+    of the slots real, the run ends of a sorted stretch with junk between
+    them, the other shard's ids and a junk tail past skip_ge; for K5 also
+    ids in [skip_ge, V), which are skipped): the port's plain versions
+    against the JAX kernels in interpret mode and the jnp fallbacks."""
+    group = jro.group_size(d) if grouped else 1
+    lines, n = 400, 1024
+    skip_ge = lines if grouped else lines - 20
+    table, ids, upd = stage4_case(n, lines, skip_ge, 0.12, "shard 1", d,
+                                  group, seed=d)
+    args = (jnp.asarray(table), jnp.asarray(ids), jnp.asarray(upd))
+    kw = dict(lr=0.25, d=d, kind=kind, skip_ge=skip_ge)
+    if grouped:
+        want_k = jro.apply_line_updates(*args, interpret=True, **kw)
+        want_f = jro._apply_line_updates_jnp(*args, jro.make_spread(d), 0.25,
+                                             kind, 1e-8, d, skip_ge)
+        got = tro.apply_line_updates(_t(table), _t(ids), _t(upd), **kw)
+    else:
+        want_k = jro.apply_row_updates(*args, interpret=True, **kw)
+        want_f = jro._apply_row_updates_jnp(*args, 0.25, kind, 1e-8, d,
+                                            skip_ge)
+        got = tro.apply_row_updates(_t(table), _t(ids), _t(upd), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_k), **INTERPRET)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_f), **FALLBACK)
+    hit = _touched(table, ids, skip_ge)
+    assert hit.sum() == round(0.12 * n)
+    assert (got.numpy()[hit] != table[hit]).any(1).all()
+    np.testing.assert_array_equal(got.numpy()[~hit], table[~hit])
 
 
 @pytest.mark.parametrize("d,grouped", [(64, False), (64, True), (16, True),
