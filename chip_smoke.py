@@ -4320,7 +4320,8 @@ def mesh_ranks_run(torch, mesh, mc, topt, rows, epochs, dev):
 def mesh_ranks_kernels(torch, name, caps):
     """Each captured kernel against its plain version on this rank's own
     inputs (K1 and K3 on the locally masked ids, K5 / K6 on the stage-4
-    stream of this model shard); returns {kernel: (max err, args)}."""
+    stream of this model shard; K3's control, its ids shifted by one row,
+    must leave entries outside TOL); returns {kernel: max err}."""
     from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
     from goctr_tpu_torch.ops.kernels import row_gather as k1
     from goctr_tpu_torch.ops.kernels import row_optimizer as ro
@@ -4336,9 +4337,17 @@ def mesh_ranks_kernels(torch, name, caps):
                     f"mesh ranks {name}: K1 differs from plain")
             err = 0.0
         elif key == "K3":
-            err = max_err(torch, k3.fused_gather_pool(*args, **kw),
-                          k3.fused_gather_pool_plain(*args, **kw),
+            want = k3.fused_gather_pool_plain(*args, **kw)
+            err = max_err(torch, k3.fused_gather_pool(*args, **kw), want,
                           "float32", f"mesh ranks {name} K3 sum")
+            # control: the shard's ids shifted by one row
+            table, ids = args[:2]
+            shifted = torch.where(ids >= 0, (ids + 1) % table.shape[0], ids)
+            bad, _ = within(torch, k3.fused_gather_pool(table, shifted,
+                                                        *args[2:], **kw),
+                            want, TOL["float32"][1], TOL["float32"][0])
+            require(bad > 0, f"mesh ranks {name}: K3 on shifted ids passes "
+                             "the limit")
         else:
             kern, plain = ((ro.apply_row_updates, ro.apply_row_updates_plain)
                            if key == "K5" else
@@ -4357,13 +4366,26 @@ def mesh_ranks_kernels(torch, name, caps):
 
 
 def mesh_ranks_times(torch, caps):
-    """Device ms (CUDA events) of each captured kernel, its plain version
-    and its library call on this rank's inputs, with bounds."""
+    """Each captured kernel, its plain version and its library call on
+    this rank's inputs, by device time (torch.profiler, `device_ms`: no
+    host gaps), with bounds; the kernel also by CUDA events around 20
+    back-to-back calls of its wrapper (`event_ms`: the host's dispatch
+    included where it outlasts the kernel). K3 also returns the share of
+    its ids that are real (this shard's)."""
     import torch.nn.functional as F
 
     from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
     from goctr_tpu_torch.ops.kernels import row_gather as k1
     from goctr_tpu_torch.ops.kernels import row_optimizer as ro
+
+    def times(kernel, plain, library):
+        out = dict(ms=device_ms(torch, lambda i: kernel(), 1),
+                   event_ms=cuda_ms(torch, kernel),
+                   plain_ms=device_ms(torch, lambda i: plain(), 1, iters=5),
+                   library_ms=None)
+        if library is not None:
+            out["library_ms"] = device_ms(torch, lambda i: library(), 1)
+        return out
 
     out = {}
     for key, cap in caps.items():
@@ -4371,28 +4393,25 @@ def mesh_ranks_times(torch, caps):
         if key == "K1":
             table, ids = args
             d, g = kw["dim"], kw.get("group", 1)
-            r = dict(ms=cuda_ms(torch, lambda: k1.gather_rows(*args, **kw)),
-                     plain_ms=cuda_ms(torch, lambda: k1.gather_rows_plain(
-                         *args, **kw), iters=5),
-                     library_ms=cuda_ms(torch, lambda: torch.index_select(
-                         table, 0, (ids // g).reshape(-1))),
-                     bytes=ids.numel() * (4 + d * 4) + row_sector_bytes(
-                         torch, ids, g, d, table.shape[1]), flops=0)
+            r = times(lambda: k1.gather_rows(*args, **kw),
+                      lambda: k1.gather_rows_plain(*args, **kw),
+                      lambda: torch.index_select(table, 0,
+                                                 (ids // g).reshape(-1)))
+            r.update(bytes=ids.numel() * (4 + d * 4) + row_sector_bytes(
+                torch, ids, g, d, table.shape[1]), flops=0)
         elif key == "K3":
             table, ids = args[:2]
             b, k = ids.shape
             d = table.shape[1]
             valid = (ids >= 0).float()
             safe = ids.clamp_min(0)
-            r = dict(ms=cuda_ms(torch, lambda: k3.fused_gather_pool(
-                         *args, **kw)),
-                     plain_ms=cuda_ms(torch, lambda: k3.fused_gather_pool_plain(
-                         *args, **kw), iters=5),
-                     library_ms=cuda_ms(torch, lambda: F.embedding_bag(
-                         safe, table, mode="sum", per_sample_weights=valid)),
-                     bytes=ids.numel() * 4 + b * d * 4 + torch.unique(
+            r = times(lambda: k3.fused_gather_pool(*args, **kw),
+                      lambda: k3.fused_gather_pool_plain(*args, **kw),
+                      lambda: F.embedding_bag(safe, table, mode="sum",
+                                              per_sample_weights=valid))
+            r.update(bytes=ids.numel() * 4 + b * d * 4 + torch.unique(
                          ids[ids >= 0]).numel() * d * 4,
-                     flops=b * k * d)
+                     flops=b * k * d, real_share=float(valid.mean()))
         else:
             kern, plain = ((ro.apply_row_updates, ro.apply_row_updates_plain)
                            if key == "K5" else
@@ -4402,11 +4421,9 @@ def mesh_ranks_times(torch, caps):
             n_real = int((ids < kw["skip_ge"]).sum())
             live = (ro.group_size(kw["d"]) if key == "K6" else 1) * (
                 kw["d"] + 1)
-            r = dict(ms=cuda_ms(torch, lambda: kern(table, ids, upd, **kw)),
-                     plain_ms=cuda_ms(torch, lambda: plain(
-                         table, ids, upd, **kw), iters=5),
-                     library_ms=None,
-                     bytes=ids.numel() * 4 + n_real * (-(-4 * live // 32)
+            r = times(lambda: kern(table, ids, upd, **kw),
+                      lambda: plain(table, ids, upd, **kw), None)
+            r.update(bytes=ids.numel() * 4 + n_real * (-(-4 * live // 32)
                                                        * 32) * 3,
                      flops=n_real * live * 8, slots=ids.numel(),
                      real=n_real)
@@ -4645,10 +4662,17 @@ def mesh_ranks_phase(torch, dev):
                 "max_abs_err": r[name]["errs"][key], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            real = (f", {100 * t['real_share']:.1f}% of its ids real"
+                    if key == "K3" else "")
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.5f}")
             log(f"[mesh-ranks] {key} {name} rank {r['rank']} device ms per "
-                f"call: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
-                f"library {t['library_ms']}, bound {t['bound_ms']:.5f} "
-                f"({t['bound_by']})")
+                f"call (profiler): kernel {t['ms']:.5f}, plain "
+                f"{t['plain_ms']:.5f}, library {lib}, bound "
+                f"{t['bound_ms']:.5f} ({t['bound_by']}, "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it){real}; CUDA "
+                f"events over 20 back-to-back wrapper calls: "
+                f"{t['event_ms']:.5f} ms a call")
             if key in rmw:
                 rmw[key].append((f"mesh {spec[0]}x{spec[1]} rank "
                                  f"{r['rank']}", t))

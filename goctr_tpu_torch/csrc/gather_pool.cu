@@ -16,28 +16,51 @@
 // (D % 128 == 0, B % 8 == 0, K >= 8) are Mosaic tiling limits, not
 // semantics: this kernel takes any B, any K and any D >= 1.
 //
-// What bounds it on the H100: bytes. Each batch row reads K ids and up to
-// K table rows (D * 4 bytes each, 256 B at D = 64) from random places of a
-// multi-GB table, and writes D * 4 bytes; the adds are ~K * D flops, far
-// under the card's rate. At the dense trainer's shape (B = 65,536, K = 32,
-// D = 64) that is 8.4 MB of ids, 16.8 MB of output and, since the zipf ids
-// repeat, ~0.5M distinct rows (~130 MB) if each were read once: ~0.05 ms at
-// 3.35 TB/s. Reading every occurrence from HBM would take ~0.16 ms; hot rows
-// repeat enough that L2 serves much of that.
-// Design: one warp per batch row. The row's ids are read once by the warp
-// (lane j holds id j of each chunk of 32), broadcast by shuffle, and the
-// valid count is a popcount of a ballot. The lanes are cut into S = 32 /
-// lpr slots of lpr lanes; a slot covers one table row with 16-byte float4
-// loads (float2 or scalar where D or the pointers do not allow it), so at
-// D = 64 a warp reads two rows at once, at D = 16 eight. The K loop is
-// unrolled kUnroll times, so each warp has kUnroll * S rows' loads in flight
-// before it adds any (8 rows at D = 64): one load in flight per warp left
-// K2 and K2b at 3.6x and 3.0x their bound. The S partial sums are combined
-// by xor shuffles; the first slot divides (IEEE division, as JAX's `/`) and
-// writes. A row wider than 256 floats is pooled in column chunks of 256
-// (the K loop runs once a chunk). The [B, K, D] rows never leave
-// registers. The TPU kernel's double-buffered row DMAs have no counterpart
-// to port: many warps in flight hide the latency instead.
+// What bounds it on the H100: bytes. Each batch row reads its K ids and
+// the table rows of its real ones (D * 4 bytes each, 256 B at D = 64) from
+// random places of a table that may not fit in L2, and writes D * 4 bytes;
+// the adds are ~K * D flops, far under the card's rate. Counting the ids
+// and the output once and each distinct row once: at the dense trainer's
+// shape (B = 65,536, K = 32, D = 64, no pads, zipf ids over 10M rows) 8.4
+// MB of ids, 16.8 MB of output and ~0.5M distinct rows (~130 MB), ~0.046
+// ms at 3.35 TB/s; on each rank of the mesh 2×2 (B = 32,768, K = 32, about
+// half the ids masked to -1 as another shard's, a [500k, 64] shard) 4.2 MB
+// of ids, 8.4 MB of output and ~99k distinct rows (~25 MB), ~0.0113 ms.
+// Reading every occurrence from HBM would take 3-4× that; hot rows repeat
+// enough that L2 serves much of it.
+// What the earlier design lost: one warp a batch row ran every slot of
+// each 32-id chunk, kUnroll x slots of them a round, a pad holding its
+// place in the round without a load. On the mesh half the ids are pads;
+// but on the H100 80GB HBM3 (700 W) that design took only 1.02-1.06x its
+// own time on the same rows with their real ids first
+// (scripts/gather_pool_sweep.py): its empty slots cost little. What its
+// time went on was the shape of a warp's work, one batch row on 32 lanes
+// (at D = 64 two table rows a load instruction, combined by shuffles at
+// the end): the same compaction on that shape ran within 3% of it.
+// Design: kWarpsPerBlock = 4 warps a block, kRowsPerWarp = 4 batch rows
+// a warp, each on 8 lanes: a table row is covered by at most kLanesPerRow
+// = 8 lanes, a lane loading up to kLaneFloats = 8 floats of it a pass (at
+// D = 64 two float4; a wider row takes more column passes, a narrower one
+// fewer lanes and so more slots a row). For each window of up to kWindow
+// ids of its rows the warp first compacts each row's real ids: the ids
+// are read once, coalesced (lane j id j of each 32), a ballot marks the
+// ids >= 0, each real id goes to its place in the row's list in shared
+// memory (the popcount of the ballot under the lane's lanemask_lt), in
+// order, and the count of valid ids is the popcount of the same ballots.
+// Then each row's lanes, cut into slots of lpr lanes (a slot covers one
+// table row with 16-byte float4 loads, float2 or scalar where D or the
+// pointers do not allow it), walk the row's list in rounds of kUnroll
+// entries a slot whose loads are all issued before any add:
+// ceil(real / (kUnroll * slots)) rounds, so every load slot of a round
+// but the last holds a real row. A row's slots are combined by xor
+// shuffles; the first slot divides (IEEE division, as JAX's `/`) and
+// writes. A row wider than lpr * kLaneFloats floats is pooled in column
+// chunks (the windows run again a chunk). The [B, K, D] rows never leave
+// registers. The TPU kernel's double-buffered row DMAs have no
+// counterpart to port: many warps in flight hide the latency instead.
+// Each slot adds its rows in list order and the slots are combined by a
+// butterfly, so the sum is not bit-exact with the plain version's
+// (another order of the same f32 adds; within f32 TOL).
 // Plain version: fused_gather_pool_plain in
 // goctr_tpu_torch/ops/kernels/embedding_lookup.py.
 #include <cuda_runtime.h>
@@ -45,10 +68,13 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kUnroll = 4;
+constexpr int kWarpsPerBlock = 4;
+constexpr int kRowsPerWarp = 4;   // batch rows a warp, where they fit
+constexpr int kLanesPerRow = 8;   // at most, lanes covering one table row
+constexpr int kLaneFloats = 8;    // at most, floats a lane loads of a row
+constexpr int kUnroll = 4;        // list entries a slot loads a round
+constexpr int kWindow = 128;      // ids of a batch row compacted at once
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kChunk = 256;   // columns a pass
 
 template <int VEC>
 __device__ __forceinline__ void load(const float* p, float (&v)[VEC]);
@@ -86,43 +112,81 @@ __device__ __forceinline__ void store<4>(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
 // VEC floats a load, CH loads a lane per table row (lpr lanes cover a
 // chunk of cw = CH * lpr * VEC columns; the chunks cover D), MEAN divides
-// by the valid count.
+// by the valid count; rpw batch rows a warp (kRowsPerWarp, halved until
+// rpw * lpr <= 32), each on 32 / rpw lanes.
 template <int VEC, int CH, bool MEAN>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_pool_kernel(const float* __restrict__ table,
                    const int* __restrict__ ids, float* __restrict__ out,
                    long long batch, int k, long long n_rows, int dim,
-                   int lpr, int cw) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
-  if (row >= batch) return;  // the whole warp: row is the warp's
+                   int lpr, int cw, int rpw) {
+  __shared__ int lists[kWarpsPerBlock][kRowsPerWarp][kWindow];
+  const int warp = threadIdx.x / 32;
+  const long long row0 =
+      (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp) * rpw;
+  if (row0 >= batch) return;  // the whole warp: its rows start at row0
   const int lane = threadIdx.x & 31;
-  const int slot = lane / lpr;
+  const int glanes = 32 / rpw;         // lanes of one batch row
+  const int grp = lane / glanes;       // which of the warp's rows
+  const int slot = (lane % glanes) / lpr;
   const int col = lane % lpr;
-  const int slots = 32 / lpr;
+  const int slots = glanes / lpr;
+  const long long row = row0 + grp;
+  const unsigned lt = lanemask_lt();
   const float nan = __int_as_float(0x7fc00000);
-  const int* row_ids = ids + row * k;
+  const int* list = lists[warp][grp];
   for (int c0 = 0; c0 < dim; c0 += cw) {
     float acc[CH][VEC];
 #pragma unroll
     for (int c = 0; c < CH; ++c)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[c][e] = 0.f;
-    int count = 0;
-    for (int k0 = 0; k0 < k; k0 += 32) {
-      const int n = min(32, k - k0);
-      const int my_id = lane < n ? __ldg(row_ids + k0 + lane) : -1;
-      count += __popc(__ballot_sync(kFull, my_id >= 0));
-      // every lane runs the same trip count, so the shuffles stay converged
-      for (int j0 = 0; j0 < n; j0 += slots * kUnroll) {
+    int count = 0;  // valid ids of this lane's row (ids >= V included)
+    for (int w0 = 0; w0 < k; w0 += kWindow) {
+      const int wn = min(kWindow, k - w0);
+      // the window's ids of each of the warp's rows, read before any
+      // ballot so that the loads overlap
+      int my[kRowsPerWarp][kWindow / 32];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+        for (int q = 0; q < kWindow / 32; ++q) {
+          const int j = q * 32 + lane;
+          const bool in = r < rpw && row0 + r < batch && j < wn;
+          my[r][q] = in ? __ldg(ids + (row0 + r) * k + w0 + j) : -1;
+        }
+      const int nq = (wn + 31) / 32;  // the same on every lane
+      int n_real = 0;  // list entries of this lane's row
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        int base = 0;
+#pragma unroll
+        for (int q = 0; q < kWindow / 32; ++q) {
+          if (q >= nq) break;
+          const unsigned real = __ballot_sync(kFull, my[r][q] >= 0);
+          if (my[r][q] >= 0) lists[warp][r][base + __popc(real & lt)] =
+              my[r][q];
+          base += __popc(real);
+        }
+        if (r == grp) n_real = base;
+      }
+      count += n_real;
+      __syncwarp();
+      for (int j0 = 0; j0 < n_real; j0 += slots * kUnroll) {
         float v[kUnroll][CH][VEC];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int j = j0 + u * slots + slot;
-          const int id = __shfl_sync(kFull, my_id, j & 31);
-          const bool live = j < n && id >= 0;
+          const bool live = j < n_real;
+          const int id = live ? list[j] : 0;
           const float* src = table + static_cast<long long>(id) * dim;
 #pragma unroll
           for (int c = 0; c < CH; ++c) {
@@ -143,15 +207,17 @@ gather_pool_kernel(const float* __restrict__ table,
 #pragma unroll
             for (int e = 0; e < VEC; ++e) acc[c][e] += v[u][c][e];
       }
+      __syncwarp();  // the next window rewrites the lists
     }
-    // combine the slots: lanes lpr apart hold the same columns
-    for (int off = lpr; off < 32; off <<= 1)
+    // combine the slots: lanes lpr apart (inside a row's lanes) hold the
+    // same columns
+    for (int off = lpr; off < glanes; off <<= 1)
 #pragma unroll
       for (int c = 0; c < CH; ++c)
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
           acc[c][e] += __shfl_xor_sync(kFull, acc[c][e], off);
-    if (slot == 0) {
+    if (slot == 0 && row < batch) {
       const float denom = fmaxf(static_cast<float>(count), 1.f);
       float* dst = out + row * dim;
 #pragma unroll
@@ -177,15 +243,33 @@ void launch_vc(const float* t, const int* i, float* o, long long batch,
                int k, long long n_rows, int dim, int lpr, bool mean,
                cudaStream_t s) {
   const int cw = CH * lpr * VEC;
+  int rpw = kRowsPerWarp;  // a power of two
+  while (rpw * lpr > 32) rpw >>= 1;
+  const long long per_block = static_cast<long long>(kWarpsPerBlock) * rpw;
   const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid(static_cast<unsigned>(
-      (batch + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const dim3 grid(static_cast<unsigned>((batch + per_block - 1) / per_block));
   if (mean) {
     gather_pool_kernel<VEC, CH, true><<<grid, block, 0, s>>>(
-        t, i, o, batch, k, n_rows, dim, lpr, cw);
+        t, i, o, batch, k, n_rows, dim, lpr, cw, rpw);
   } else {
     gather_pool_kernel<VEC, CH, false><<<grid, block, 0, s>>>(
-        t, i, o, batch, k, n_rows, dim, lpr, cw);
+        t, i, o, batch, k, n_rows, dim, lpr, cw, rpw);
+  }
+}
+
+// the instance of `ch` loads a lane per row: CH = 1, 2, 4, ... while
+// CH * VEC <= kLaneFloats
+template <int VEC, int CH = 1>
+void launch_ch(int ch, const float* t, const int* i, float* o,
+               long long batch, int k, long long n_rows, int dim, int lpr,
+               bool mean, cudaStream_t s) {
+  if constexpr (CH * VEC <= kLaneFloats) {
+    if (ch == CH) {
+      launch_vc<VEC, CH>(t, i, o, batch, k, n_rows, dim, lpr, mean, s);
+    } else {
+      launch_ch<VEC, CH * 2>(ch, t, i, o, batch, k, n_rows, dim, lpr, mean,
+                             s);
+    }
   }
 }
 
@@ -194,21 +278,11 @@ void launch_v(const float* t, const int* i, float* o, long long batch,
               int k, long long n_rows, int dim, bool mean, cudaStream_t s) {
   const int nvec = dim / VEC;
   int lpr = 1;
-  while (lpr < nvec && lpr < 32) lpr <<= 1;
-  // loads a lane per row a chunk: 1, 2, 4 or 8, at most kChunk / (32 * VEC)
+  while (lpr < nvec && lpr < kLanesPerRow) lpr <<= 1;
+  // loads a lane per row a column chunk; wider rows take more chunks
   int ch = 1;
-  while (ch * lpr < nvec && ch * lpr * VEC < kChunk) ch <<= 1;
-  if (ch == 1) {
-    launch_vc<VEC, 1>(t, i, o, batch, k, n_rows, dim, lpr, mean, s);
-  } else if (ch == 2) {
-    launch_vc<VEC, 2>(t, i, o, batch, k, n_rows, dim, lpr, mean, s);
-  } else if constexpr (VEC <= 2) {
-    if (ch == 4) {
-      launch_vc<VEC, 4>(t, i, o, batch, k, n_rows, dim, lpr, mean, s);
-    } else if constexpr (VEC == 1) {
-      launch_vc<VEC, 8>(t, i, o, batch, k, n_rows, dim, lpr, mean, s);
-    }
-  }
+  while (ch * lpr < nvec && 2 * ch * VEC <= kLaneFloats) ch <<= 1;
+  launch_ch<VEC>(ch, t, i, o, batch, k, n_rows, dim, lpr, mean, s);
 }
 
 }  // namespace

@@ -196,6 +196,16 @@ def _sharded_lookup(table, ids, mesh, dedup_cap, with_overflow, width,
     return (out, over) if with_overflow else out
 
 
+def shard_local_ids(ids: torch.Tensor, shard: int, per: int
+                    ) -> torch.Tensor:
+    """ids [B, K] (-1 pads) masked to model shard `shard` of `per` rows:
+    id - shard·per where that lies in [0, per), else -1; int32,
+    contiguous (the ids K3 pools on a mesh above 1×1)."""
+    rel = ids - shard * per
+    valid = (ids >= 0) & (rel >= 0) & (rel < per)
+    return torch.where(valid, rel, -1).to(torch.int32).contiguous()
+
+
 def sharded_pooled_lookup(table: torch.Tensor, ids: torch.Tensor,
                           mesh: Mesh, combiner: str = "mean"
                           ) -> torch.Tensor:
@@ -206,10 +216,7 @@ def sharded_pooled_lookup(table: torch.Tensor, ids: torch.Tensor,
     this shard's rows, the sums are psummed over `model` and "mean"
     divides by the count of valid ids."""
     if mesh.size > 1:
-        per = table.shape[0]
-        rel = ids - mesh.index(MODEL_AXIS) * per
-        valid = (ids >= 0) & (rel >= 0) & (rel < per)
-        local = torch.where(valid, rel, -1).to(torch.int32).contiguous()
+        local = shard_local_ids(ids, mesh.index(MODEL_AXIS), table.shape[0])
         pooled = psum(GatherPoolSum.apply(table, local), mesh, MODEL_AXIS)
         if combiner == "mean":
             count = (ids >= 0).to(torch.float32).sum(1, keepdim=True)

@@ -28,8 +28,10 @@ stream's hot run (40,000 rows) at d >= 64, where its ~10^7 units of
 1/256 pass 2^24 and two orders of adds may round it an ulp apart
 (relative 6e-8). So only rsqrtf and that ulp may differ — the same rtol
 1e-6, atol 1e-7, untouched lines bit exact. K3 sums the same
-f32 rows in another order than its plain version (atol 1e-6, rtol 1e-5);
-ids past the table give NaN rows in both. Its backward is torch glue:
+f32 rows in another order than its plain version (atol 1e-6, rtol 1e-5;
+on rows of 129-300 ids both are held to the f64 sum instead, within 1e-6
+of the sum of the terms' magnitudes); ids past the table give NaN rows
+in both. Its backward is torch glue:
 held to autograd through the plain pool in f64; index_add_'s f32 atomics
 add a row's terms (up to ~2·10^4 for a hot id) in any order, so each
 entry lies within 1e-4 of the sum of its terms' magnitudes (+1e-7).
@@ -180,6 +182,95 @@ def test_gather_pool_kernel_matches_plain(cuda, combiner, b, k, d):
         assert bool(torch.isnan(got[2]).all()) and bool((got[1] == 0).all())
     torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
                                atol=1e-6, rtol=1e-5)
+
+
+def _shared_pool_inputs(b, k, v, d, share, dev, seed=9, offset=0):
+    """Uniform ids of which a share `share` are real (the rest -1, as a
+    mesh rank's masking leaves them); where any are real, row 1 is fully
+    padded, row 3 has exactly one real id and row 2 one id past the table.
+    offset > 0 places the table `offset` floats past an aligned address."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, v, (b, k)).astype(np.int32)
+    ids[rng.random((b, k)) >= share] = -1
+    if share > 0:
+        ids[1] = -1
+        ids[3] = -1
+        ids[3, k // 2] = 7
+        ids[2, 0] = v + 3
+    flat = torch.from_numpy(rng.normal(0, 0.1, v * d + offset).astype(
+        np.float32)).to(dev)
+    table = flat[offset:].view(v, d)
+    return table, torch.from_numpy(ids).to(dev)
+
+
+def _check_pool(table, ids, combiner):
+    before = k3.fused_gather_pool.launches
+    got = k3.fused_gather_pool(table, ids, combiner)
+    want = k3.fused_gather_pool_plain(table, ids, combiner)
+    torch.cuda.synchronize()
+    assert k3.fused_gather_pool.launches == before + 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               atol=1e-6, rtol=1e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.12, 0.5, 1.0])
+@pytest.mark.parametrize("d", [1, 3, 16, 64, 264, 600])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_gather_pool_kernel_at_real_shares(cuda, combiner, d, share):
+    """K3 loads only the real ids of a row: rows of 0%, 12%, 50% and 100%
+    real ids, across the 32-id chunk (K = 40), at every load width."""
+    table, ids = _shared_pool_inputs(999, 40, 3000, d, share, cuda)
+    got = _check_pool(table, ids, combiner)
+    if share == 0.0:
+        assert bool((got == 0).all())
+    else:
+        assert bool((got[1] == 0).all()) and bool(torch.isnan(got[2]).all())
+        assert torch.equal(got[3], table[7])       # one real id: its row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.12, 1.0])
+@pytest.mark.parametrize("k", [129, 300])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_gather_pool_kernel_on_long_rows(cuda, combiner, k, share):
+    """Rows longer than the ids a warp compacts at once (128). Over up to
+    300 f32 adds either order moves an entry near 0 by more than TOL's
+    atol (the plain version reads 1.3e-6 from the f64 sum at K = 300), so
+    kernel and plain version are each held to the f64 sum, within 1e-6
+    of the sum of the terms' magnitudes (+1e-7)."""
+    table, ids = _shared_pool_inputs(513, k, 3000, 64, share, cuda)
+    before = k3.fused_gather_pool.launches
+    got = k3.fused_gather_pool(table, ids, combiner)
+    want = k3.fused_gather_pool_plain(table, ids, combiner)
+    torch.cuda.synchronize()
+    assert k3.fused_gather_pool.launches == before + 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    v = table.shape[0]
+    ok = (ids >= 0) & (ids < v)
+    rows = table.double()[torch.where(ok, ids, 0).long()] * ok[..., None]
+    ref, mag = rows.sum(1), rows.abs().sum(1)
+    if combiner == "mean":
+        n = (ids >= 0).sum(1, keepdim=True).clamp_min(1).double()
+        ref, mag = ref / n, mag / n
+    fine = ~torch.isnan(want)
+    for out in (got, want):
+        err = (out.double() - ref).abs()[fine]
+        assert bool((err <= 1e-6 * mag[fine] + 1e-7).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,offset", [(64, 1), (64, 2), (16, 1), (16, 2)])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_gather_pool_kernel_on_misaligned_tables(cuda, combiner, d, offset):
+    """A table 4 or 8 bytes off a 16-byte boundary takes the scalar or
+    float2 loads; half its ids real."""
+    table, ids = _shared_pool_inputs(1000, 32, 3000, d, 0.5, cuda,
+                                     offset=offset)
+    assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    _check_pool(table, ids, combiner)
 
 
 @pytest.mark.cuda

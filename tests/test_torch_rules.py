@@ -49,7 +49,9 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("script", ["parity_ml20m_torch.py",
                                     "din_pool_sweep.py",
-                                    "gather_run_sweep.py"])
+                                    "gather_run_sweep.py",
+                                    "rmw_sweep.py",
+                                    "gather_pool_sweep.py"])
 def test_port_script_imports_no_jax(script):
     """The scripts that drive the port on the card import neither."""
     path = PKG.parent / "scripts" / script
