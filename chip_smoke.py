@@ -190,6 +190,16 @@ Phases, in order; any failure raises and the script exits nonzero:
                K6: the share of real slots in its stream, its time, bound
                and share of the bound on the scanned trainer's first step
                (phases 6, 7) and on each rank's stage-4 stream.
+ 15. sync    — one step of each training path that promises never to
+               make the host wait on the card (parallel/step_cases.py:
+               the scanned trainer in every update mode with its kernel
+               variants, the 1×1 mesh's sparse step in fused with K5,
+               dedup, sorted and plain, its dense step with K3, the four
+               dense rankers' steps (DIN "pallas" with K2 / K2b), the
+               capped lookup's _dedup_flat) at the headline widths and
+               batch, run again under torch.cuda.set_sync_debug_mode(
+               "error"): any wait raises. One `[sync]` line names every
+               case that passed.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
@@ -4693,6 +4703,42 @@ def rmw_share_lines(headline, mesh):
             for label, t in [("scanned trainer", head), *mesh[key]]))
 
 
+# ------------------------------------------------------------ phase 15 --
+def sync_phase(torch, dev):
+    """Phase 15: one step of each training path that promises not to make
+    the host wait on the card (goctr_tpu_torch/parallel/step_cases.py:
+    the scanned trainer in every update mode and its kernel variants, the
+    1×1 mesh's sparse step in fused (K5), dedup, sorted and plain, its
+    dense step (K3), the dense rankers' steps (MLPTower, YoutubeDNN, DIN
+    "xla" and "pallas": K2, K2b) and the capped lookup's _dedup_flat) at
+    the headline widths (the grouped cases at GROUPED's, the rankers at
+    ML20M's) and batch, each called once to build and warm up and once
+    under torch.cuda.set_sync_debug_mode("error"), where any wait raises;
+    no failure is caught. Prints one line naming every case that
+    passed."""
+    from goctr_tpu_torch.parallel.step_cases import step_cases
+
+    t0 = time.perf_counter()
+    passed = []
+    for name, build in step_cases(dev, HEADLINE, GROUPED, ML20M,
+                                  TRAIN_BATCH):
+        step = build()
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        passed.append(name)
+        del step
+        torch.cuda.empty_cache()
+    log(f"[sync] no wait under set_sync_debug_mode(\"error\") in "
+        f"{len(passed)} steps at batch {TRAIN_BATCH} "
+        f"({time.perf_counter() - t0:.1f} s): {', '.join(passed)}")
+
+
 def mesh_rank_nccl(spec):
     """(a) split's loss curve on one rank a card over NCCL."""
     import torch
@@ -4917,6 +4963,10 @@ def main() -> int:
     # 14. the (data, model) mesh on one card: ranks over gloo ---------------
     mesh_entries, mesh_rmw = mesh_ranks_phase(torch, dev)
     rmw_share_lines({"K5": t6["K5"], "K6": t7["K6"]}, mesh_rmw)
+    torch.cuda.empty_cache()
+
+    # 15. the steps that promise not to wait, under the sync debug mode ----
+    sync_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []

@@ -208,7 +208,10 @@ def train_step(model: RankModel, params: dict, solver: Solver,
     """One step on float32 rows xb, labels yb and weights wb: the
     weighted BCE, its gradient with respect to the parameter leaves
     (which require grad), one solver step added to them in place.
-    Returns (loss, new solver state); nothing syncs the host."""
+    Returns (loss, new solver state) on the device; the host never waits
+    on the card here (each dense ranker's step runs under
+    torch.cuda.set_sync_debug_mode("error") in chip_smoke.py's [sync]
+    phase, parallel/step_cases.py)."""
     leaves = param_leaves(params)
     with torch.enable_grad():
         logits = model.apply(params, blocks_of(xb, info, model.behavior_len),

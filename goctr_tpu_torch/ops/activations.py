@@ -6,6 +6,8 @@ activation table (nn/neural_network/basemlp64.go:79-117).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -60,10 +62,17 @@ def cosine_similarity(x: torch.Tensor, y: torch.Tensor,
     dtype, as the JAX version forms it.
     """
     dot = (x * y).sum(-1)
-    e2 = torch.tensor(eps, dtype=dot.dtype) ** 2
-    xn = torch.sqrt(torch.clamp((x * x).sum(-1), min=e2.item()))
-    yn = torch.sqrt(torch.clamp((y * y).sum(-1), min=e2.item()))
+    e2 = _square_in(eps, dot.dtype)
+    xn = torch.sqrt(torch.clamp((x * x).sum(-1), min=e2))
+    yn = torch.sqrt(torch.clamp((y * y).sum(-1), min=e2))
     return dot / (xn * yn + eps)
+
+
+@functools.cache
+def _square_in(eps: float, dtype: torch.dtype) -> float:
+    """eps² formed in `dtype`, as a Python number (once a dtype, so a
+    step reads no tensor back)."""
+    return (torch.tensor(eps, dtype=dtype) ** 2).item()
 
 
 def euclidean_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,10 @@ _BWD_ARGTYPES = {"din_attention_bwd_f32": _BWD_SIGNATURE,
 WARPS_PER_BLOCK = 4                # kWarps
 BLOCKS_PER_SM = 4                  # kBlocksPerSM
 _count_lock = threading.Lock()
+# the kernels' norm clamp: the float32 eps and eps² (plain K2b works in
+# float64 on float32 inputs, with these float32 constants)
+_EPS32 = float(torch.tensor(1e-8, dtype=torch.float32))
+_EPS32_SQ = float(torch.tensor(1e-8, dtype=torch.float32) ** 2)
 
 
 def sm_count(device: torch.device) -> int:
@@ -154,8 +158,7 @@ def din_attention_pool_bwd_plain(dout: torch.Tensor,
     b = behaviors.to(wt)
     i = item.to(wt)[:, None, :]
     go = dout.to(wt)[:, None, :]
-    eps = float(torch.tensor(1e-8, dtype=torch.float32))
-    e2 = float(torch.tensor(1e-8, dtype=torch.float32) ** 2)
+    eps, e2 = _EPS32, _EPS32_SQ
     att0, mask = att0.to(wt), mask.to(wt)
     bb = (b * b).sum(-1)                                   # [B, T]
     ii = (i * i).sum(-1)                                   # [B, 1]

@@ -133,17 +133,18 @@ def _dedup_flat(flat: torch.Tensor, cap: int):
     """Static-shape batch dedup: (uniq [cap] — the unique ids ascending,
     -1 padded; inv [n] — the slot of each position; n_unique — their
     count). Slots past the cap are dropped from uniq (callers clip inv),
-    as in JAX."""
+    as in JAX: they all write one extra slot, which is cut, so no shape
+    depends on the data and the host does not wait on the card. Every
+    other slot is written only with its one id."""
     s, order = torch.sort(flat, stable=True)
     new = torch.cat([torch.ones(1, dtype=torch.bool, device=flat.device),
                      s[1:] != s[:-1]])
     slot_sorted = torch.cumsum(new, 0) - 1
-    keep = slot_sorted < cap
-    uniq = flat.new_full((cap,), -1)
-    uniq[slot_sorted[keep]] = s[keep]
+    uniq = flat.new_full((cap + 1,), -1)
+    uniq[slot_sorted.clamp_max(cap)] = s
     inv = torch.empty_like(slot_sorted)
     inv[order] = slot_sorted
-    return uniq, inv, slot_sorted[-1] + 1
+    return uniq[:cap], inv, slot_sorted[-1] + 1
 
 
 def sharded_lookup(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh,

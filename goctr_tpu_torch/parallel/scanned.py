@@ -44,8 +44,12 @@ sorted and plain add each occurrence's ‖g‖² to the accumulator and scale
 every occurrence by the accumulator after all of them (the JAX trainer's
 Hogwild-style per-occurrence update), different arithmetic.
 
-Loss and overflow stay on the device; the host syncs once per epoch, as
-the JAX trainer does (`float(cost)` once per epoch, :633-634). Padded
+Loss and overflow stay on the device; the host waits on the card once
+per epoch, to read them back together, as the JAX trainer does
+(`float(cost)` once per epoch, :633-634). No step waits, in any update
+mode: chip_smoke.py's [sync] phase and tests/test_torch_cuda.py run
+each mode's step under torch.cuda.set_sync_debug_mode("error")
+(parallel/step_cases.py). Padded
 update slots follow the JAX trainer: the stream is padded to a multiple
 of ROWS_PER_STEP with pad id V, and junk targets are V+1+k (on lines
 L+n+1+k), which the packed row updates skip and dedup's table holds.
@@ -456,7 +460,8 @@ def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
     that keep it apart, the accumulator `acc`) in place. The table is in
     the layout of topt.update_mode (module docstring): grouped lines of
     `table_group` rows, [V, 128] rows, or [rows, D]. Returns (loss,
-    overflow, new solver state); nothing syncs the host."""
+    overflow, new solver state) on the device; the host never waits on
+    the card here (module docstring)."""
     params = model.param_leaves()
     with torch.enable_grad():
         emb = gather_batch_rows(

@@ -17,8 +17,12 @@ last batch is padded with item 0, label 0 and no behaviors, and its pad
 rows enter the mean loss and the gradients (a reference fault the port
 keeps so that trajectories compare, ROADMAP C); the epoch's cost is the
 mean of each batch's loss weighted by its real rows, summed in float64.
-The port keeps that sum and the overflow count on the device and syncs
-once per epoch, where JAX syncs every step; the numbers are the same.
+The port keeps that sum and the overflow count on the device and reads
+them back once per epoch, where JAX syncs every step; the numbers are
+the same. The host waits on the card twice an epoch (the permutation's
+upload at its start, that read at its end) and, on a mesh above 1×1
+over gloo, at each staged collective of a step (parallel/train.py); no
+other step operation waits.
 
 Random streams: the shuffle is host numpy, `np.random.default_rng(seed)`
 with one permutation an epoch, as in JAX, so both packages see the same

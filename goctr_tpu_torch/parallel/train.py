@@ -48,8 +48,16 @@ the split line update; dedup, sorted and plain take one scatter pair
 
 Parameters, the table and its accumulator are updated IN PLACE, where
 the JAX steps return new arrays (they donate the old ones). A step
-returns its loss (and overflow count) on the device; nothing syncs the
-host but the collectives of a mesh above 1×1.
+returns its loss (and overflow count) on the device. On the 1×1 mesh
+the host never waits on the card in a step (chip_smoke.py's [sync]
+phase and tests/test_torch_cuda.py run both steps under
+torch.cuda.set_sync_debug_mode("error"), parallel/step_cases.py). On a
+larger mesh the only waits are the collectives': over gloo each psum and
+all_gather of a CUDA tensor is staged through pinned host memory
+(core/meshes.py `_all_reduce`, `all_gather`), and the copy there and the
+copy back each make the host wait; over NCCL they are enqueued on the
+card's stream (not checked under the sync debug mode, which would need
+a card a rank).
 """
 from __future__ import annotations
 

@@ -35,6 +35,10 @@ in both. Its backward is torch glue:
 held to autograd through the plain pool in f64; index_add_'s f32 atomics
 add a row's terms (up to ~2·10^4 for a hot id) in any order, so each
 entry lies within 1e-4 of the sum of its terms' magnitudes (+1e-7).
+The steps that promise never to make the host wait (parallel/
+step_cases.py) run under torch.cuda.set_sync_debug_mode("error"); the
+mask-free scatter and dedup, and a headline-shape epoch in dedup, sorted
+and plain, equal the masked versions they replaced bit for bit.
 """
 import numpy as np
 import pytest
@@ -48,6 +52,8 @@ from goctr_tpu_torch.ops.kernels import row_optimizer as tro
 from goctr_tpu_torch.ops.kernels import run_optimizer as k8
 from goctr_tpu_torch.ops.scatter import scatter_add_rows
 from goctr_tpu_torch.ops.segsum import _cumsum_rows
+from goctr_tpu_torch.parallel.embedding import _dedup_flat
+from goctr_tpu_torch.parallel.step_cases import sample_arrays, step_cases
 
 
 @pytest.fixture
@@ -1005,3 +1011,177 @@ def test_randn_rows_on_the_card_equal_the_whole_draw(cuda):
             assert torch.equal(randn_rows(g, shape, a, b), whole[a:b])
             assert g.get_offset() == end
         del whole
+
+
+# ------------------------------------------- steps that never wait (C.5) --
+def mask_scatter_add_rows(table, ids, rows):
+    """scatter_add_rows as it was: the dropped ids cut by a boolean mask
+    (a nonzero: the host waits for its size)."""
+    keep = (ids >= 0) & (ids < table.shape[0])
+    ids, rows = ids[keep].long(), rows[keep]
+    return table.index_put_((ids,), rows, accumulate=True)
+
+
+def mask_dedup_flat(flat, cap):
+    """_dedup_flat as it was: slots past the cap cut by a boolean mask."""
+    s, order = torch.sort(flat, stable=True)
+    new = torch.cat([torch.ones(1, dtype=torch.bool, device=flat.device),
+                     s[1:] != s[:-1]])
+    slot_sorted = torch.cumsum(new, 0) - 1
+    keep = slot_sorted < cap
+    uniq = flat.new_full((cap,), -1)
+    uniq[slot_sorted[keep]] = s[keep]
+    inv = torch.empty_like(slot_sorted)
+    inv[order] = slot_sorted
+    return uniq, inv, slot_sorted[-1] + 1
+
+
+class no_waits:
+    """torch.cuda.set_sync_debug_mode("error") for a block: any operation
+    that makes the host wait on the card raises."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+SYNC_MODEL = dict(item_vocab=50_000, emb_dim=64, u_profile_dim=8, ctx_dim=4,
+                  behavior_len=8, hidden=(64, 32), activation="relu")
+SYNC_RANKER = dict(u_profile_dim=8, behavior_len=4, behavior_dim=16,
+                   i_feature_dim=16, c_feature_dim=5)
+SYNC_CASES = dict(step_cases("cuda", SYNC_MODEL, dict(SYNC_MODEL, emb_dim=16),
+                             SYNC_RANKER, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SYNC_CASES))
+def test_step_never_waits_on_the_card(cuda, name):
+    """One step of each path that promises not to wait (the kernels on
+    their paths included) raises nothing under the sync debug mode after
+    its first call, which builds the kernels."""
+    step = SYNC_CASES[name]()
+    step()
+    with no_waits():
+        step()
+
+
+@pytest.mark.cuda
+def test_sync_guard_catches_the_mask(cuda):
+    """Control: the masked scatter this replaced raises under the guard."""
+    table = torch.zeros(10, 4, device=cuda)
+    ids = torch.arange(-3, 12, device=cuda)
+    with no_waits(), pytest.raises(RuntimeError, match="synchroniz"):
+        mask_scatter_add_rows(table, ids, torch.ones(15, 4, device=cuda))
+
+
+def _card_stream(kind, gen, v, n, cuda):
+    """Scatter streams as the trainers give them: ids below 0 and past v
+    among in-range ids with a hot id (plain order); -1 pads first, then
+    ascending (the sorted mode); distinct ascending ids and most slots
+    past the shard (the mesh's stage 4); a few ids of a large table."""
+    if kind == "interleaved":
+        ids = torch.randint(-3, v + 3, (n,), generator=gen, device=cuda)
+        ids[torch.rand(n, generator=gen, device=cuda) < 0.3] = 7
+    elif kind == "pads first":
+        ids = torch.randint(0, v, (n,), generator=gen, device=cuda)
+        ids[torch.rand(n, generator=gen, device=cuda) < 0.25] = -1
+        ids = torch.sort(ids).values
+    elif kind == "stage 4":
+        real = torch.sort(torch.randperm(v, generator=gen, device=cuda)[
+            :n // 8]).values
+        ids = torch.cat([real, v + 1 + torch.arange(n - real.numel(),
+                                                    device=cuda)])
+    else:
+        ids = torch.randint(-v // 4, v, (n,), generator=gen, device=cuda)
+    return ids.int()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 16, 64])
+@pytest.mark.parametrize("kind,v,n", [("interleaved", 500, 200_000),
+                                      ("pads first", 500, 200_000),
+                                      ("stage 4", 400_000, 200_000),
+                                      ("sparse", 1_000_000, 100_000)])
+def test_scatter_add_rows_equals_the_mask_on_the_card(cuda, kind, v, n, d):
+    """Bit for bit the masked scatter on the same inputs, NaN and Inf rows
+    at the dropped ids, +0.0 / -0.0 in the table and ids whose kept rows
+    are all -0.0; and no wait."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ids = _card_stream(kind, gen, v, n, cuda)
+    dropped = (ids < 0) | (ids >= v)
+    rows = torch.randn(n, d, generator=gen, device=cuda)
+    rows[ids % 5 == 0] = -0.0           # ids whose sums stay -0.0
+    junk = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30],
+                        device=cuda)
+    rows[dropped] = junk[torch.randint(0, 4, (int(dropped.sum()), d),
+                                       generator=gen, device=cuda)]
+    table = torch.randn(v, d, generator=gen, device=cuda)
+    zero = torch.rand(v, d, generator=gen, device=cuda)
+    table[zero < 0.1] = 0.0
+    table[zero > 0.9] = -0.0
+    want = mask_scatter_add_rows(table.clone(), ids, rows)
+    got = table.clone()
+    with no_waits():
+        scatter_add_rows(got, ids, rows)
+    assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1024, 4095, 4096, 20_000])
+def test_dedup_flat_equals_the_mask_on_the_card(cuda, cap):
+    """4,096 unique ids (-1 among them) in 100,000: caps below, one below,
+    at and above the unique count; equal to the masked version, no wait."""
+    gen = torch.Generator(device=cuda).manual_seed(cap)
+    flat = torch.cat([torch.arange(-1, 4095, device=cuda),
+                      torch.randint(-1, 4095, (100_000 - 4096,),
+                                    generator=gen, device=cuda)])
+    flat = flat[torch.randperm(flat.numel(), generator=gen,
+                               device=cuda)].int()
+    want = mask_dedup_flat(flat, cap)
+    with no_waits():
+        got = _dedup_flat(flat, cap)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+HEADLINE = dict(item_vocab=10_000_000, emb_dim=64, u_profile_dim=48,
+                ctx_dim=16, behavior_len=32, hidden=(1024, 512, 256),
+                activation="relu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dedup", "sorted", "plain"])
+def test_headline_epoch_equals_the_mask_scatter(cuda, mode, monkeypatch):
+    """One scanned epoch at the headline's widths and batch (4 steps of
+    65,536 rows, a quarter of the behaviors -1): loss, table and
+    accumulator bit for bit those of the masked scatter, swapped in."""
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.parallel import scanned
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
+
+    sample = SparseSample(**sample_arrays(HEADLINE, 4 * 65_536, seed=1))
+    cfg = TrainerConfig(batch_size=65_536, epochs=1, early_stop=0,
+                        shuffle=True, seed=0)
+    topt = scanned.TableOptConfig(kind="adagrad", lr=2.0, update_mode=mode)
+
+    def run():
+        model = SparseCTR(**HEADLINE, compute_dtype=torch.bfloat16,
+                          device=cuda)
+        r = scanned.train_sparse_scanned(model, sample, cfg, topt,
+                                         device=cuda)
+        return r.loss_curve, bits(r.table).cpu(), bits(r.acc).cpu()
+
+    got = run()
+    monkeypatch.setattr(scanned, "scatter_add_rows", mask_scatter_add_rows)
+    want = run()
+    assert got[0] == want[0]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])

@@ -51,7 +51,8 @@ def test_chip_smoke_imports_no_jax():
                                     "din_pool_sweep.py",
                                     "gather_run_sweep.py",
                                     "rmw_sweep.py",
-                                    "gather_pool_sweep.py"])
+                                    "gather_pool_sweep.py",
+                                    "sync_epochs.py"])
 def test_port_script_imports_no_jax(script):
     """The scripts that drive the port on the card import neither."""
     path = PKG.parent / "scripts" / script
