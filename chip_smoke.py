@@ -200,6 +200,22 @@ Phases, in order; any failure raises and the script exits nonzero:
                batch, run again under torch.cuda.set_sync_debug_mode(
                "error"): any wait raises. One `[sync]` line names every
                case that passed.
+ 16. depth   — the headline and BASELINE #5 trained as the JAX bench
+               trains them, at its own depth, on fresh tables after the
+               earlier phases' are freed (`depth_run`): bench.py's draw
+               of rows + 250,000 held-out rows (bit for bit bench.py's
+               rows, dropped after the run), the headline at
+               5,000,000 rows, batch 65,536, 4 epochs (77 steps an
+               epoch) and the 100M × 16 grouped lines at 1,000,000 rows,
+               batch 16,384, 3 epochs (62 steps), fused with the split
+               update, xla compaction and bench.py's compact_cap rule.
+               Launch counts reset just before each run and read just
+               after: K1, K2, K2b and K4 launched, K5-K9 not. Each
+               held-out eval_auc (and the headline's eval_gauc) must
+               clear JAX's reading of the same draw less 0.01
+               (DEPTH_BARS), the oracle's ceiling must round to
+               bench.py's, device metrics agree with numpy and the
+               scores against permuted held-out labels read chance.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
@@ -265,7 +281,8 @@ TRAIN_BATCH = 65_536
 TRAIN_ROWS = 16 * TRAIN_BATCH
 TRAIN_EPOCHS = 3
 TABLE_LR = 2.0
-# grouped training: the JAX bench's rows for 100M x 16 (bench.py:146-147)
+# grouped training: BASELINE #5's rows (bench.py:146-147) at the headline's
+# batch, not its configuration (batch 16,384: phase 16)
 GROUPED_TRAIN_ROWS = 1_000_000
 # K2b vs its plain version (bf16 d_behaviors / d_item): both round an f32
 # value that agrees to a few f32 ulps, so one bf16 ulp (rtol 2^-7); where
@@ -900,13 +917,13 @@ def make_workload(n, vocab, t, u, c, seed=0):
         labels=y), uids, p_pos.astype(np.float32)
 
 
-def split_workload(n, vocab, t, u, c, seed=0):
-    """bench.py's split (:163-174): n + EVAL_ROWS rows drawn as one, the
-    first n to train, the last EVAL_ROWS held out. Returns (train sample,
+def split_workload(n, vocab, t, u, c, seed=0, eval_rows=EVAL_ROWS):
+    """bench.py's split (:163-174): n + eval_rows rows drawn as one, the
+    first n to train, the last eval_rows held out. Returns (train sample,
     held-out sample, held-out user ids, held-out oracle scores)."""
     from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 
-    full, uids, oracle = make_workload(n + EVAL_ROWS, vocab, t, u, c, seed)
+    full, uids, oracle = make_workload(n + eval_rows, vocab, t, u, c, seed)
 
     def part(sl):
         return SparseSample(full.user_profile[sl], full.behavior_ids[sl],
@@ -4754,6 +4771,165 @@ def mesh_rank_nccl(spec):
                           mesh.device)[0]
 
 
+# ------------------------------------------------------------ phase 16 --
+# the headline and BASELINE #5 at the JAX bench's own depth: bench.py's
+# defaults (:130-150) and its 100M x 16 command (--vocab=100000000 --dim=16
+# --rows=1000000 --batch=16384 --epochs=3, BENCH_NOTES.md:95-100), each on
+# its own draw of rows + DEPTH_EVAL_ROWS (bench.py:139-174)
+DEPTH_EVAL_ROWS = 250_000               # bench.py's n_eval
+DEPTH = {"headline": dict(vocab=10_000_000, dim=64, rows=5_000_000,
+                          batch=65_536, epochs=4),
+         "baseline5": dict(vocab=100_000_000, dim=16, rows=1_000_000,
+                           batch=16_384, epochs=3)}
+# the bars: the JAX package's held-out readings of the same draws less
+# 0.01 — the headline's eval_auc 0.8442 and eval_gauc 0.8443
+# (BENCH_r05.json), BASELINE #5's eval_auc 0.7925, the lower of its two
+# readings (BENCH_NOTES.md:97-100; 0.800 at :245-246). JAX's own headline
+# readings across batch sizes and update routes spread by 0.0016
+# (BENCH_NOTES.md:41-45, 272-277)
+DEPTH_BARS = {"headline": {"eval_auc": 0.8342, "eval_gauc": 0.8343},
+              "baseline5": {"eval_auc": 0.7825}}
+# the oracle's AUC on each draw as bench.py reported it, and its digits:
+# the draw is bench.py's
+DEPTH_CEILING = {"headline": (0.8734, 4), "baseline5": (0.872, 3)}
+# the trained scores against a fixed permutation of the held-out labels
+# must read chance within this (the null AUC's sd at 250,000 rows is
+# ~0.0012)
+DEPTH_CONTROL_ATOL = 0.02
+DEPTH_CONTROL_SEED = 1
+# the training path's kernels: launched in every depth run, or never
+DEPTH_LAUNCHED = ("gather_rows", "din_attention_pool",
+                  "din_attention_pool_bwd", "scatter_rows_packed")
+DEPTH_IDLE = ("compact_runsums_block", "apply_row_updates",
+              "apply_line_updates", "apply_csum_updates",
+              "apply_run_updates", "fused_gather_pool")
+
+
+def depth_run(torch, dev, model_cfg, draw, batch, epochs, seed=SEED,
+              mode="fused", rmw="split", compact_impl="xla",
+              compact_cap=None):
+    """bench.py's training run (:175-203) on `draw` (split_workload's):
+    SparseCTR(**model_cfg) in bf16 from the trainer's generator,
+    TrainerConfig(batch, epochs, early_stop 0, lr 1e-3, shuffle, seed),
+    the table's adagrad at TABLE_LR with `mode`, `rmw`, `compact_impl` and
+    (None) bench.py's compact_cap rule in fused, else 0. Launch counts
+    reset just before the run and read just after. The held-out rows are
+    scored by eval_metrics (device and numpy) and against a fixed
+    permutation of their labels (the control). Returns the readings."""
+    from goctr_tpu_torch.core import metrics as mt
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.parallel.scanned import (
+        TableOptConfig, train_sparse_scanned)
+    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
+
+    sample, ev_sample, ev_uids, ev_oracle = draw
+    if compact_cap is None:
+        compact_cap = (bench_compact_cap(sample, batch) if mode == "fused"
+                       else 0)
+    cfg = TrainerConfig(batch_size=batch, epochs=epochs, early_stop=0,
+                        lr=1e-3, shuffle=True, seed=seed)
+    topt = TableOptConfig(kind="adagrad", lr=TABLE_LR, update_mode=mode,
+                          rmw_impl=rmw, compact_impl=compact_impl,
+                          compact_cap=compact_cap)
+    counted = counted_kernels()
+    for f in counted.values():
+        f.launches = 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.init()       # the allocator's stats exist from here on
+        torch.cuda.reset_peak_memory_stats(dev)
+    r = train_sparse_scanned(
+        SparseCTR(**model_cfg, compute_dtype=torch.bfloat16, device=dev),
+        sample, cfg, topt, device=dev)
+    launches = {k: f.launches for k, f in counted.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    scores = r.predict(ev_sample)
+    ev = eval_metrics(torch, scores, ev_sample.labels, ev_uids, ev_oracle,
+                      dev, check_numpy=True)
+    shuffled = np.random.default_rng(DEPTH_CONTROL_SEED).permutation(
+        np.asarray(ev_sample.labels))
+    ev["control_auc"] = float(mt.roc_auc_score(shuffled, scores))
+    rows, steps = sample.rows, -(-sample.rows // batch)
+    steady = r.epoch_times[1:]
+    ev.update(
+        rows=rows, eval_rows=ev_sample.rows, batch=batch, epochs=epochs,
+        steps_per_epoch=steps, pad_rows=steps * batch - rows,
+        seed=seed, mode=mode, rmw=rmw, compact_impl=compact_impl,
+        compact_cap=compact_cap, vocab=model_cfg["item_vocab"],
+        dim=model_cfg["emb_dim"], table_group=r.packed_group,
+        loss_curve=r.loss_curve, epoch_s=r.epoch_times,
+        steady_ex_per_s=(rows * len(steady) / sum(steady) if steady
+                         else None),
+        step_ms=(sum(steady) / (steps * len(steady)) * 1e3 if steady
+                 else None),
+        overflow=r.update_overflow_max, peak_gb=peak, launches=launches)
+    del r
+    if cuda:
+        torch.cuda.empty_cache()
+    return ev
+
+
+def check_depth(name, ev):
+    """Phase 16's bars on one run's readings (module constants)."""
+    for key, bar in DEPTH_BARS[name].items():
+        require(ev[key] >= bar, f"depth {name}: {key} {ev[key]:.6f} below "
+                                f"the bar {bar}")
+    want, digits = DEPTH_CEILING[name]
+    require(round(ev["eval_auc_ceiling"], digits) == want,
+            f"depth {name}: ceiling {ev['eval_auc_ceiling']:.6f} does not "
+            f"round to bench.py's {want}: not bench.py's draw")
+    require(abs(ev["control_auc"] - 0.5) <= DEPTH_CONTROL_ATOL,
+            f"depth {name}: permuted-label AUC {ev['control_auc']:.6f} not "
+            f"within {DEPTH_CONTROL_ATOL} of 0.5")
+    lc = ev["loss_curve"]
+    require(all(np.isfinite(lc)), f"depth {name}: loss {lc}")
+    launched = ev["launches"]
+    require(all(launched[k] > 0 for k in DEPTH_LAUNCHED)
+            and not any(launched[k] for k in DEPTH_IDLE),
+            f"depth {name}: launches {launched}")
+
+
+def depth_phase(torch, dev):
+    """Phase 16: each DEPTH configuration drawn (split_workload, the draw
+    dropped from make_workload's cache after its run: 5.25M rows are ~2
+    GB of host memory), trained (depth_run) and held to its bars
+    (check_depth); no failure is caught, and an overflowing compact_cap
+    is logged beside the bars. Returns the readings by name."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, c in DEPTH.items():
+        t0 = time.perf_counter()
+        model_cfg = dict(HEADLINE, item_vocab=c["vocab"], emb_dim=c["dim"])
+        draw = split_workload(c["rows"], c["vocab"], HEADLINE["behavior_len"],
+                              HEADLINE["u_profile_dim"], HEADLINE["ctx_dim"],
+                              SEED, DEPTH_EVAL_ROWS)
+        t_draw = time.perf_counter() - t0
+        ev = depth_run(torch, dev, model_cfg, draw, c["batch"],
+                       c["epochs"])
+        del draw
+        make_workload.cache_clear()
+        log(f"[depth] {name}: V={c['vocab']} D={c['dim']} (G="
+            f"{ev['table_group']}), {c['rows']} rows + {DEPTH_EVAL_ROWS} "
+            f"held out drawn in {t_draw:.1f} s, batch {c['batch']}, "
+            f"{ev['steps_per_epoch']} steps an epoch (the last with "
+            f"{ev['pad_rows']} padded rows), compact_cap "
+            f"{ev['compact_cap']}: loss curve {ev['loss_curve']}, epoch s "
+            f"{ev['epoch_s']}, steady {ev['steady_ex_per_s']:.1f} ex/s, "
+            f"step {ev['step_ms']:.3f} ms, peak device memory "
+            f"{ev['peak_gb']:.2f} GB, overflow {ev['overflow']}; launches "
+            f"{ev['launches']}")
+        log(f"[depth] {name}: held-out eval_auc {ev['eval_auc']:.6f} "
+            f"eval_gauc {ev['eval_gauc']:.6f} eval_auc_ceiling "
+            f"{ev['eval_auc_ceiling']:.6f} (bars {DEPTH_BARS[name]}); "
+            f"device vs numpy {ev['metric_err']:.3g} (limit {METRIC_ATOL}); "
+            f"permuted labels {ev['control_auc']:.6f}; run "
+            f"{time.perf_counter() - t0:.1f} s")
+        check_depth(name, ev)
+        out[name] = ev
+    log(f"[depth] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4967,6 +5143,11 @@ def main() -> int:
 
     # 15. the steps that promise not to wait, under the sync debug mode ----
     sync_phase(torch, dev)
+
+    # 16. the headline and BASELINE #5 at the JAX bench's depth -------------
+    del scorer, table, model, g_model
+    torch.cuda.empty_cache()
+    depth = depth_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -5044,7 +5225,8 @@ def main() -> int:
         f"{pipe['mlp']['auc']:.4f}, GAUC {pipe['mlp']['gauc']:.4f}, fit "
         f"{pipe['mlp']['fit_ex_per_s']:.1f} ex/s, Rank over HTTP p50 "
         f"{pipe['http']['p50_ms']:.2f} ms p99 {pipe['http']['p99_ms']:.2f} "
-        f"ms; ml20m held-out AUC {ml20m_auc}; total "
+        f"ms; ml20m held-out AUC {ml20m_auc}; at depth eval_auc "
+        f"{ {k: round(v['eval_auc'], 6) for k, v in depth.items()} }; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

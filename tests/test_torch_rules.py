@@ -52,7 +52,8 @@ def test_chip_smoke_imports_no_jax():
                                     "gather_run_sweep.py",
                                     "rmw_sweep.py",
                                     "gather_pool_sweep.py",
-                                    "sync_epochs.py"])
+                                    "sync_epochs.py",
+                                    "depth_auc.py"])
 def test_port_script_imports_no_jax(script):
     """The scripts that drive the port on the card import neither."""
     path = PKG.parent / "scripts" / script
