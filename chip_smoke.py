@@ -105,9 +105,10 @@ Phases, in order; any failure raises and the script exits nonzero:
                the two DIN impls' first-epoch losses agree, and a pool
                that returns zeros (control) does not; a profiled step.
  10. item2vec — the port's Word2Vec at the JAX package's bench size
-               (scripts/bench_item2vec.py: ~9.5M words of planted
-               clusters as str tokens, 10k vocab; skipgram + hs, dim 16,
-               window 5, batch 65,536, 3 iterations): words/s and
+               (goctr_tpu_torch.bench_item2vec's corpus and run, as
+               `--quality` trains it: ~9.5M words of planted clusters as
+               str tokens, 10k vocab; skipgram + hs, dim 16, window 5,
+               batch 65,536, 3 iterations; its steady line): words/s and
                pair-updates/s over iterations 2-3, peak device memory,
                the top-5 neighbour purity gate (>= 0.95, numpy oracle)
                with random vectors as its control; the pipeline's own
@@ -145,9 +146,11 @@ Phases, in order; any failure raises and the script exits nonzero:
                answering 16 concurrent clients × 25 requests of 100
                candidates (p50/p99), the dashboard's endpoints and page, a
                BatchPredict of 100 candidates broken down (SQL fetch,
-               assembly, copies, device time, idle share); and
+               assembly, copies, device time, idle share);
                `python -m goctr_tpu_torch.main` as a subprocess until it
-               answers one POST.
+               answers one POST; and goctr_tpu_torch.bench_serving at its
+               defaults (its own fixture, 50 requests × 400 items from 4
+               threads over HTTP: the `[bench-serving]` lines).
  13. ml20m   — the ML-20M-statistics protocol through
                scripts/parity_ml20m_torch.py's stages: the port's
                generator at scale 0.05 (6,924 users × 1,337 movies, ~1.1M
@@ -202,7 +205,9 @@ Phases, in order; any failure raises and the script exits nonzero:
                case that passed.
  16. depth   — the headline and BASELINE #5 trained as the JAX bench
                trains them, at its own depth, on fresh tables after the
-               earlier phases' are freed (`depth_run`): bench.py's draw
+               earlier phases' are freed (`depth_run`: goctr_tpu_torch.
+               bench's `train` at its default flags and at BASELINE #5's):
+               bench.py's draw
                of rows + 250,000 held-out rows (bit for bit bench.py's
                rows, dropped after the run), the headline at
                5,000,000 rows, batch 65,536, 4 epochs (77 steps an
@@ -215,7 +220,15 @@ Phases, in order; any failure raises and the script exits nonzero:
                clear JAX's reading of the same draw less 0.01
                (DEPTH_BARS), the oracle's ceiling must round to
                bench.py's, device metrics agree with numpy and the
-               scores against permuted held-out labels read chance.
+               scores against permuted held-out labels read chance. The
+               headline's run then gives goctr_tpu_torch.bench's JSON
+               line (`[bench]`: its serving rates measured on the trained
+               model, MFU and HBM use on the card's peaks), held to
+               bench.py's keys, finite values, both rates above 0 and
+               MFU and HBM use in (0, 100], and one DeviceScorer batch of
+               its requests held to predict on the same rows
+               (SCORE_ATOL_TRAINED; control: the candidates one place
+               on).
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
@@ -242,6 +255,10 @@ import urllib.error
 import urllib.request
 
 import numpy as np
+
+from goctr_tpu_torch import bench, bench_item2vec, bench_serving
+from goctr_tpu_torch.bench import (
+    _zipf_ranks, bench_compact_cap, card_line, counted_kernels)
 
 SEED = 0
 R_REQ, K_CAND = 32, 400            # requests × candidates per score_batch
@@ -407,16 +424,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _zipf_ranks(rng, shape, n_ranks, s=1.05):
-    """Bounded-zipf rank draws in [0, n_ranks): P(r) ≈ (r+1)^-s, by the
-    closed-form inverse CDF of the continuous bounded power law (the
-    request popularity law of the JAX package's bench)."""
-    u = rng.random(shape)
-    t = float(n_ranks) ** (1.0 - s)
-    x = (1.0 - u * (1.0 - t)) ** (1.0 / (1.0 - s))
-    return np.minimum(x.astype(np.int64) - 1, n_ranks - 1).clip(0)
-
-
 def make_requests(rng, n, vocab, cfg):
     """n requests: zipf-popular ids with hot ranks scattered over the id
     space (Knuth multiplicative hash, as the bench workload does), ragged
@@ -491,14 +498,6 @@ def bound(nbytes, flops):
     return max(b, f) * 1e3, "bytes" if b >= f else "operations"
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
-# ------------------------------------------------------------- phase 2 --
 def check_gather(torch, kern, table, ids, group, dim, vocab_rows, what):
     """K1 vs its plain version on `ids` and on out-of-range ids; bit-exact
     (a copy and a round-to-nearest-even cast) in f32 and bf16."""
@@ -873,72 +872,17 @@ def http_check(scorer, reqs):
 
 
 # ------------------------------------------------------------- phase 6 --
-@functools.lru_cache(maxsize=None)
-def make_workload(n, vocab, t, u, c, seed=0):
-    """The JAX package's bench workload (bench.py:44-109, copied: bench.py
-    imports the JAX package), with its defaults zipf=True, noisy=True;
-    made once per argument set (the phases only read it).
-    Planted parity: label = item parity == the user's taste parity, which
-    85% of the behaviors carry; zipf (s = 1.05) popularity with hot ranks
-    scattered over the id space by a multiplicative hash; 15% of labels
-    flip and hot items lean positive. Returns (sample, user ids, oracle
-    scores): the oracle is the Bayes-optimal P(label = 1), whose AUC is
-    the ceiling."""
-    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
-
-    rng = np.random.default_rng(seed)
-    uids = rng.integers(0, max(n // 256, 1), n).astype(np.int32)
-    user_taste = rng.integers(0, 2, max(n // 256, 1))
-    taste = user_taste[uids]
-    half = vocab // 2
-    prime = 2_654_435_761            # Knuth multiplicative hash, odd
-
-    def draw(shape):
-        r = _zipf_ranks(rng, shape, half)
-        return (r * prime) % half, r
-
-    b_slot, _ = draw((n, t))
-    b_alt, _ = draw((n, t))
-    bids = np.where(
-        rng.random((n, t)) < 0.85,
-        b_slot * 2 + taste[:, None],
-        b_alt * 2 + rng.integers(0, 2, (n, t))).astype(np.int32)
-    i_slot, i_rank = draw((n,))
-    iids = (i_slot * 2 + rng.integers(0, 2, n)).astype(np.int32)
-    parity = ((iids % 2) == taste)
-    hot = i_rank < max(half // 10, 1)
-    p_pos = np.where(parity, 0.85, 0.15) + np.where(hot, 0.10, -0.01)
-    p_pos = p_pos.clip(0.02, 0.98)
-    y = (rng.random(n) < p_pos).astype(np.float32)
-    return SparseSample(
-        user_profile=rng.random((n, u), dtype=np.float32),
-        behavior_ids=bids, item_ids=iids,
-        ctx=rng.random((n, c), dtype=np.float32),
-        labels=y), uids, p_pos.astype(np.float32)
+# the JAX bench's workload (goctr_tpu_torch/bench.py's copy of bench.py:44-
+# 109, bit for bit), made once per argument set: the phases only read it
+make_workload = functools.lru_cache(maxsize=None)(bench.make_workload)
 
 
 def split_workload(n, vocab, t, u, c, seed=0, eval_rows=EVAL_ROWS):
-    """bench.py's split (:163-174): n + eval_rows rows drawn as one, the
-    first n to train, the last eval_rows held out. Returns (train sample,
-    held-out sample, held-out user ids, held-out oracle scores)."""
-    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
-
-    full, uids, oracle = make_workload(n + eval_rows, vocab, t, u, c, seed)
-
-    def part(sl):
-        return SparseSample(full.user_profile[sl], full.behavior_ids[sl],
-                            full.item_ids[sl], full.ctx[sl], full.labels[sl])
-
-    return part(slice(None, n)), part(slice(n, None)), uids[n:], oracle[n:]
-
-
-def bench_compact_cap(sample, bs: int) -> int:
-    """bench.py's rule: the first batch's unique ids + 15%, rounded up to
-    a multiple of 1024."""
-    b0 = np.concatenate([sample.behavior_ids[:bs].ravel(),
-                         sample.item_ids[:bs]])
-    uniq0 = len(np.unique(b0[b0 >= 0]))
-    return -(-int(uniq0 * 1.15) // 1024) * 1024
+    """bench.py's split (:163-174) of one cached draw of n + eval_rows
+    rows: (train sample, held-out sample, held-out user ids, held-out
+    oracle scores)."""
+    return bench.split_rows(make_workload(n + eval_rows, vocab, t, u, c,
+                                          seed), n)
 
 
 def within(torch, got, want, rtol, atol):
@@ -1795,23 +1739,6 @@ def update_mode_controls(torch, sample, cfg, topt, start, dev, loss0):
                 f"inside the limit {LOSS_RTOL_IMPL}, which therefore "
                 f"cannot catch it")
     return readings
-
-
-def counted_kernels():
-    """The launch-counted wrappers of the training paths, by name."""
-    from goctr_tpu_torch.ops.kernels import compact as k9
-    from goctr_tpu_torch.ops.kernels import din_attention as k2
-    from goctr_tpu_torch.ops.kernels import row_gather as k1
-    from goctr_tpu_torch.ops.kernels import row_optimizer as ro
-    from goctr_tpu_torch.ops.kernels import run_optimizer as k8
-
-    from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
-
-    return {f.__name__: f for f in (
-        k1.gather_rows, k2.din_attention_pool, k2.din_attention_pool_bwd,
-        ro.scatter_rows_packed, k9.compact_runsums_block,
-        ro.apply_row_updates, ro.apply_line_updates, ro.apply_csum_updates,
-        k8.apply_run_updates, k3.fused_gather_pool)}
 
 
 def line_update_controls(torch, sample, cfg, topt, start, dev, loss0):
@@ -3076,47 +3003,6 @@ def dense_phase(torch, dev):
 
 
 # ------------------------------------------------------------ phase 10 --
-def make_cluster_corpus(n_words, vocab, n_clusters, n_docs, p_in=0.85,
-                        seed=0):
-    """The JAX package's item2vec bench corpus
-    (scripts/bench_item2vec.py:44-67, copied; W2V_CORPUS holds its
-    defaults): items partition into
-    clusters of vocab / n_clusters; each doc owns a zipf-popular home
-    cluster and draws p_in of its words from it, the rest globally.
-    Returns (docs as int arrays, cluster_of [vocab])."""
-    rng = np.random.default_rng(seed)
-    per = vocab // n_clusters
-    cluster_of = np.minimum(np.arange(vocab) // per, n_clusters - 1)
-    p = 1.0 / np.arange(1, n_clusters + 1) ** 1.05
-    p /= p.sum()
-    doc_len = np.maximum(rng.poisson(n_words / n_docs, n_docs), 4)
-    docs = []
-    home = rng.choice(n_clusters, n_docs, p=p)
-    for d in range(n_docs):
-        L = doc_len[d]
-        inside = rng.random(L) < p_in
-        w = np.where(inside, home[d] * per + rng.integers(0, per, L),
-                     rng.integers(0, vocab, L))
-        docs.append(w.astype(np.int64))
-    return docs, cluster_of
-
-
-def neighbor_purity(vecs, ids, cluster_of, k: int = 5, n_query: int = 500,
-                    seed: int = 0) -> float:
-    """Share of the top-k cosine neighbours that share the query's
-    planted cluster (the bench's numpy oracle,
-    scripts/bench_item2vec.py:70-83; `ids` maps rows to item ids)."""
-    vn = vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True),
-                           1e-12)
-    rng = np.random.default_rng(seed)
-    q = rng.choice(len(ids), min(n_query, len(ids)), replace=False)
-    sims = vn[q] @ vn.T
-    sims[np.arange(len(q)), q] = -np.inf
-    top = np.argpartition(sims, -k, axis=1)[:, -k:]
-    return float((cluster_of[ids[top]] == cluster_of[ids[q]][:, None]
-                  ).mean())
-
-
 class IterLog:
     """Collects Word2Vec's per-iteration records (verbose=True logs each
     iteration's examples and seconds after its one sync)."""
@@ -3160,7 +3046,8 @@ def check_w2v_card_vs_cpu(torch, dev):
     the card and the CPU fed the same draws: tables within W2V_ATOL /
     W2V_RTOL; control: the card's w_in with one row written as the next
     id's."""
-    raw, _ = make_cluster_corpus(20_000, 200, 10, 400, seed=SEED + 3)
+    raw, _ = bench_item2vec.make_cluster_corpus(20_000, 200, 10, 400,
+                                                seed=SEED + 3)
     docs = [[str(w) for w in d] for d in raw]
     worst, ctl = 0.0, []
     for model in ("skipgram", "cbow"):
@@ -3235,22 +3122,18 @@ def item2vec_phase(torch, dev):
     import io
 
     from goctr_tpu_torch.embedding import store
-    from goctr_tpu_torch.embedding.word2vec import Word2Vec
 
     t_phase = time.perf_counter()
-    raw, cluster_of = make_cluster_corpus(**W2V_CORPUS)
+    raw, cluster_of = bench_item2vec.make_cluster_corpus(**W2V_CORPUS)
     docs = [[str(w) for w in d] for d in raw]
     n_words = sum(map(len, docs))
     t_corpus = time.perf_counter() - t_phase
+    kw = dict(bench_item2vec.options(W2V_BENCH_BATCH), verbose=True)
     iters = IterLog()
     try:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated() / 1e9
-        t0 = time.perf_counter()
-        w2v = Word2Vec(dim=16, window=5, model="skipgram", optimizer="hs",
-                       batch_size=W2V_BENCH_BATCH, min_count=1, seed=1,
-                       iters=W2V_ITERS, verbose=True, device=dev).train(docs)
-        wall_a = time.perf_counter() - t0
+        w2v, wall_a = bench_item2vec.timed_train(docs, W2V_ITERS, dev, **kw)
         peak = torch.cuda.max_memory_allocated() / 1e9 - held
         run_a, iters.rows = iters.rows, []
         t0 = time.perf_counter()
@@ -3265,11 +3148,11 @@ def item2vec_phase(torch, dev):
     rate_a = n_words * len(steady) / secs
     pairs_a = sum(r[1] for r in steady) / secs
     rate_b = n_words / run_b[0][2]
-    ids = np.asarray([int(w2v.dictionary.word(i))
-                      for i in range(len(w2v.dictionary))])
-    purity = neighbor_purity(w2v.vectors(), ids, cluster_of)
-    control = neighbor_purity(np.random.default_rng(SEED).normal(
-        size=w2v.vectors().shape), ids, cluster_of)
+    ids = bench_item2vec.item_ids(w2v)
+    purity = bench_item2vec.neighbor_purity(w2v.vectors(), ids, cluster_of)
+    control = bench_item2vec.neighbor_purity(
+        np.random.default_rng(SEED).normal(size=w2v.vectors().shape), ids,
+        cluster_of)
     require(purity >= PURITY_MIN, f"item2vec purity {purity} < {PURITY_MIN}")
     require(control <= PURITY_CONTROL_MAX,
             f"item2vec purity control (random vectors) reads {control}")
@@ -3288,6 +3171,10 @@ def item2vec_phase(torch, dev):
         f"iteration): {run_b[0][2]:.4f} s, {rate_b:.1f} words/s; the call "
         f"{wall_b:.1f} s ({n_words / wall_b:.1f} words/s end to end), "
         f"{len(emb_b)} words kept")
+    line = bench_item2vec.steady_line(w2v.words_trained, wall_a, n_words,
+                                      W2V_ITERS, kw)
+    log(f"[item2vec] bench_item2vec --quality (run A): {line}; at-scale "
+        f"top-5 neighbor cluster purity: {purity:.3f}")
 
     # a profiled slice: the epoch over the corpus's first W2V_PROF_BLOCKS
     # blocks at run A's settings, on its trained tables
@@ -4054,6 +3941,14 @@ def pipeline_phase(torch, dev):
         cli_s = pipeline_cli(db, user, tmp)
     del mlp, din
     torch.cuda.empty_cache()
+    # (5) python -m goctr_tpu_torch.bench_serving at its defaults
+    served = bench_serving.run(device=dev)
+    for line in bench_serving.lines(served):
+        log(f"[bench-serving] {line}")
+    require(served["scores"] == served["requests"] * served["items"],
+            f"bench_serving: {served['scores']} scores for "
+            f"{served['requests']} requests of {served['items']} items")
+    torch.cuda.empty_cache()
     log(f"[pipeline] done in {time.perf_counter() - t_phase:.1f} s")
     entries = []
     for key, name, src, replaces, count in (
@@ -4075,6 +3970,7 @@ def pipeline_phase(torch, dev):
             "library_ms": None})
     return entries, {"mlp": r_mlp, "din": r_din, "http": http,
                      "profile": prof, "cli_s": cli_s, "rank_k2": rank_k2,
+                     "bench_serving": served,
                      "controls": dict(fit_ctl, rank=rank_ctl)}
 
 
@@ -4773,14 +4669,12 @@ def mesh_rank_nccl(spec):
 
 # ------------------------------------------------------------ phase 16 --
 # the headline and BASELINE #5 at the JAX bench's own depth: bench.py's
-# defaults (:130-150) and its 100M x 16 command (--vocab=100000000 --dim=16
-# --rows=1000000 --batch=16384 --epochs=3, BENCH_NOTES.md:95-100), each on
-# its own draw of rows + DEPTH_EVAL_ROWS (bench.py:139-174)
-DEPTH_EVAL_ROWS = 250_000               # bench.py's n_eval
-DEPTH = {"headline": dict(vocab=10_000_000, dim=64, rows=5_000_000,
-                          batch=65_536, epochs=4),
-         "baseline5": dict(vocab=100_000_000, dim=16, rows=1_000_000,
-                           batch=16_384, epochs=3)}
+# defaults (:130-150) and its 100M x 16 command (BENCH_NOTES.md:95-100),
+# as goctr_tpu_torch.bench's flags; each on its own draw of rows +
+# 250,000 held-out rows (bench.py:139-174)
+DEPTH = {"headline": [],
+         "baseline5": ["--vocab=100000000", "--dim=16", "--rows=1000000",
+                       "--batch=16384", "--epochs=3"]}
 # the bars: the JAX package's held-out readings of the same draws less
 # 0.01 — the headline's eval_auc 0.8442 and eval_gauc 0.8443
 # (BENCH_r05.json), BASELINE #5's eval_auc 0.7925, the lower of its two
@@ -4793,80 +4687,43 @@ DEPTH_BARS = {"headline": {"eval_auc": 0.8342, "eval_gauc": 0.8343},
 # the draw is bench.py's
 DEPTH_CEILING = {"headline": (0.8734, 4), "baseline5": (0.872, 3)}
 # the trained scores against a fixed permutation of the held-out labels
-# must read chance within this (the null AUC's sd at 250,000 rows is
-# ~0.0012)
+# (goctr_tpu_torch.bench.evaluate's control_auc) must read chance within
+# this (the null AUC's sd at 250,000 rows is ~0.0012)
 DEPTH_CONTROL_ATOL = 0.02
-DEPTH_CONTROL_SEED = 1
 # the training path's kernels: launched in every depth run, or never
 DEPTH_LAUNCHED = ("gather_rows", "din_attention_pool",
                   "din_attention_pool_bwd", "scatter_rows_packed")
 DEPTH_IDLE = ("compact_runsums_block", "apply_row_updates",
               "apply_line_updates", "apply_csum_updates",
               "apply_run_updates", "fused_gather_pool")
+# bench.py's JSON keys in its order (:288-303), with held-out metrics on
+# the noisy draw and both serving rates
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline",
+              "model_flops_per_example", "mfu_pct",
+              "model_bytes_per_example", "hbm_util_pct", "workload",
+              "eval_auc", "eval_gauc", "eval_auc_ceiling",
+              "serving_scores_per_s", "serving_device_scores_per_s"]
 
 
-def depth_run(torch, dev, model_cfg, draw, batch, epochs, seed=SEED,
-              mode="fused", rmw="split", compact_impl="xla",
-              compact_cap=None):
-    """bench.py's training run (:175-203) on `draw` (split_workload's):
-    SparseCTR(**model_cfg) in bf16 from the trainer's generator,
-    TrainerConfig(batch, epochs, early_stop 0, lr 1e-3, shuffle, seed),
-    the table's adagrad at TABLE_LR with `mode`, `rmw`, `compact_impl` and
-    (None) bench.py's compact_cap rule in fused, else 0. Launch counts
-    reset just before the run and read just after. The held-out rows are
-    scored by eval_metrics (device and numpy) and against a fixed
-    permutation of their labels (the control). Returns the readings."""
-    from goctr_tpu_torch.core import metrics as mt
-    from goctr_tpu_torch.models.trainer import TrainerConfig
-    from goctr_tpu_torch.parallel.scanned import (
-        TableOptConfig, train_sparse_scanned)
-    from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
-
-    sample, ev_sample, ev_uids, ev_oracle = draw
-    if compact_cap is None:
-        compact_cap = (bench_compact_cap(sample, batch) if mode == "fused"
-                       else 0)
-    cfg = TrainerConfig(batch_size=batch, epochs=epochs, early_stop=0,
-                        lr=1e-3, shuffle=True, seed=seed)
-    topt = TableOptConfig(kind="adagrad", lr=TABLE_LR, update_mode=mode,
-                          rmw_impl=rmw, compact_impl=compact_impl,
-                          compact_cap=compact_cap)
+def depth_run(torch, dev, s, draw, seed=SEED):
+    """goctr_tpu_torch.bench's training run of settings `s` on `draw`
+    (bench.train, trainer seed `seed`), launch counts reset just before
+    and read just after, then its held-out readings (bench.evaluate: the
+    device metrics, their distance from numpy, which must be within
+    METRIC_ATOL, and the permuted-label control) and the run's own
+    (Run.readings). Returns (the run, the readings)."""
     counted = counted_kernels()
     for f in counted.values():
         f.launches = 0
-    cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.init()       # the allocator's stats exist from here on
-        torch.cuda.reset_peak_memory_stats(dev)
-    r = train_sparse_scanned(
-        SparseCTR(**model_cfg, compute_dtype=torch.bfloat16, device=dev),
-        sample, cfg, topt, device=dev)
+    run = bench.train(s, draw, dev, seed)
     launches = {k: f.launches for k, f in counted.items()}
-    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
-    scores = r.predict(ev_sample)
-    ev = eval_metrics(torch, scores, ev_sample.labels, ev_uids, ev_oracle,
-                      dev, check_numpy=True)
-    shuffled = np.random.default_rng(DEPTH_CONTROL_SEED).permutation(
-        np.asarray(ev_sample.labels))
-    ev["control_auc"] = float(mt.roc_auc_score(shuffled, scores))
-    rows, steps = sample.rows, -(-sample.rows // batch)
-    steady = r.epoch_times[1:]
-    ev.update(
-        rows=rows, eval_rows=ev_sample.rows, batch=batch, epochs=epochs,
-        steps_per_epoch=steps, pad_rows=steps * batch - rows,
-        seed=seed, mode=mode, rmw=rmw, compact_impl=compact_impl,
-        compact_cap=compact_cap, vocab=model_cfg["item_vocab"],
-        dim=model_cfg["emb_dim"], table_group=r.packed_group,
-        loss_curve=r.loss_curve, epoch_s=r.epoch_times,
-        steady_ex_per_s=(rows * len(steady) / sum(steady) if steady
-                         else None),
-        step_ms=(sum(steady) / (steps * len(steady)) * 1e3 if steady
-                 else None),
-        overflow=r.update_overflow_max, peak_gb=peak, launches=launches)
-    del r
-    if cuda:
-        torch.cuda.empty_cache()
-    return ev
+    ev = bench.evaluate(run, dev)
+    require(all(np.isfinite(ev[k]) for k in ("eval_auc", "eval_gauc")),
+            f"eval metrics not finite: {ev}")
+    require(ev["metric_err"] <= METRIC_ATOL,
+            f"device metrics vs numpy differ by {ev['metric_err']}")
+    ev.update(run.readings(), launches=launches)
+    return run, ev
 
 
 def check_depth(name, ev):
@@ -4889,28 +4746,80 @@ def check_depth(name, ev):
             f"depth {name}: launches {launched}")
 
 
+def bench_check(torch, dev, run, ev):
+    """The [bench] line: goctr_tpu_torch.bench's JSON line of the trained
+    headline (its serving rates measured here), held to bench.py's keys,
+    finite values, MFU and HBM use in (0, 100] of the card's peaks and
+    serving rates above 0; one DeviceScorer batch of its serving requests
+    within SCORE_ATOL_TRAINED of predict on the same rows, and the same
+    scores against predict of the candidates one place on (control).
+    Returns the line."""
+    from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
+    from goctr_tpu_torch.serve.scorer import DeviceScorer
+
+    rates = bench.serve_rates(run, dev)
+    line = bench.bench_line(run, ev, rates, bench.card_peaks(
+        torch.cuda.get_device_name(dev)))
+    log(f"[bench] {json.dumps(line)}")
+    require(list(line) == BENCH_KEYS, f"[bench] keys {list(line)}")
+    nums = {k: v for k, v in line.items() if not isinstance(v, str)}
+    require(all(np.isfinite(v) for v in nums.values()),
+            f"[bench] values not finite: {nums}")
+    require(0 < line["mfu_pct"] <= 100 and 0 < line["hbm_util_pct"] <= 100,
+            f"[bench] mfu_pct {line['mfu_pct']}, hbm_util_pct "
+            f"{line['hbm_util_pct']}")
+    require(line["serving_scores_per_s"] > 0
+            and line["serving_device_scores_per_s"] > 0,
+            f"[bench] serving rates {rates}")
+    ev_rows = run.draw.eval_sample
+    got = np.concatenate(bench.serving_batch(
+        DeviceScorer.from_scanned(run.ranker, device=dev), ev_rows, 0))
+
+    def predicted(shift):
+        reqs = [bench.serving_request(ev_rows, r)
+                for r in range(bench.SERVE_R)]
+        k = [np.roll(c, shift) for _, _, _, c in reqs]
+        rep = np.repeat(np.arange(len(reqs)), [len(c) for c in k])
+        rows = SparseSample(
+            np.stack([p for p, _, _, _ in reqs])[rep],
+            np.stack([b for _, b, _, _ in reqs])[rep], np.concatenate(k),
+            np.stack([c for _, _, c, _ in reqs])[rep],
+            np.zeros(len(rep), np.float32))
+        return run.ranker.predict(rows)
+
+    err = float(np.abs(got - predicted(0)).max())
+    ctl = float(np.abs(got - predicted(1)).max())
+    require(err <= SCORE_ATOL_TRAINED,
+            f"[bench] DeviceScorer vs predict: {err:.3g} > "
+            f"{SCORE_ATOL_TRAINED}")
+    require(ctl > SCORE_ATOL_TRAINED,
+            f"[bench] control (candidates one place on) reads {ctl:.3g}")
+    log(f"[bench] one DeviceScorer batch ({bench.SERVE_R} requests x "
+        f"{bench.SERVE_K}) vs predict on the same rows: max err {err:.3g} "
+        f"(limit {SCORE_ATOL_TRAINED}; candidates one place on read "
+        f"{ctl:.3g})")
+    return line
+
+
 def depth_phase(torch, dev):
-    """Phase 16: each DEPTH configuration drawn (split_workload, the draw
-    dropped from make_workload's cache after its run: 5.25M rows are ~2
-    GB of host memory), trained (depth_run) and held to its bars
-    (check_depth); no failure is caught, and an overflowing compact_cap
-    is logged beside the bars. Returns the readings by name."""
+    """Phase 16: each DEPTH configuration drawn (its Settings' draw, made
+    anew and dropped after its run: 5.25M rows are ~2 GB of host memory),
+    trained (depth_run) and held to its bars (check_depth); the headline's
+    run also gives the [bench] line (bench_check). No failure is caught,
+    and an overflowing compact_cap is logged beside the bars. Returns the
+    readings by name and the bench line."""
     t_phase = time.perf_counter()
+    make_workload.cache_clear()         # the earlier phases' draws
     out = {}
-    for name, c in DEPTH.items():
+    for name, flags in DEPTH.items():
         t0 = time.perf_counter()
-        model_cfg = dict(HEADLINE, item_vocab=c["vocab"], emb_dim=c["dim"])
-        draw = split_workload(c["rows"], c["vocab"], HEADLINE["behavior_len"],
-                              HEADLINE["u_profile_dim"], HEADLINE["ctx_dim"],
-                              SEED, DEPTH_EVAL_ROWS)
+        s = bench.settings(flags)
+        draw = s.draw()
         t_draw = time.perf_counter() - t0
-        ev = depth_run(torch, dev, model_cfg, draw, c["batch"],
-                       c["epochs"])
-        del draw
-        make_workload.cache_clear()
-        log(f"[depth] {name}: V={c['vocab']} D={c['dim']} (G="
-            f"{ev['table_group']}), {c['rows']} rows + {DEPTH_EVAL_ROWS} "
-            f"held out drawn in {t_draw:.1f} s, batch {c['batch']}, "
+        run, ev = depth_run(torch, dev, s, draw)
+        log(f"[depth] {name}: V={s.vocab} D={s.dim} (G="
+            f"{ev['table_group']}), {s.rows} rows + {s.eval_rows} "
+            f"held out drawn in {t_draw:.1f} s, batch {s.batch}, "
             f"{ev['steps_per_epoch']} steps an epoch (the last with "
             f"{ev['pad_rows']} padded rows), compact_cap "
             f"{ev['compact_cap']}: loss curve {ev['loss_curve']}, epoch s "
@@ -4925,9 +4834,13 @@ def depth_phase(torch, dev):
             f"permuted labels {ev['control_auc']:.6f}; run "
             f"{time.perf_counter() - t0:.1f} s")
         check_depth(name, ev)
+        if name == "headline":
+            line = bench_check(torch, dev, run, ev)
         out[name] = ev
+        del run, draw
+        torch.cuda.empty_cache()
     log(f"[depth] done in {time.perf_counter() - t_phase:.1f} s")
-    return out
+    return out, line
 
 
 def main() -> int:
@@ -5147,7 +5060,7 @@ def main() -> int:
     # 16. the headline and BASELINE #5 at the JAX bench's depth -------------
     del scorer, table, model, g_model
     torch.cuda.empty_cache()
-    depth = depth_phase(torch, dev)
+    depth, bench_json = depth_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -5213,6 +5126,7 @@ def main() -> int:
          "bound_by": din_bound_by, "library_ms": None},
     ] + train_entries + [k3_entry] + dense_entries + pipeline_entries
         + ml20m_entries + mesh_entries}
+    served = pipe["bench_serving"]
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "
         f"err plain {err_plain:.3g}; smallest control reading headline "
@@ -5226,7 +5140,11 @@ def main() -> int:
         f"{pipe['mlp']['fit_ex_per_s']:.1f} ex/s, Rank over HTTP p50 "
         f"{pipe['http']['p50_ms']:.2f} ms p99 {pipe['http']['p99_ms']:.2f} "
         f"ms; ml20m held-out AUC {ml20m_auc}; at depth eval_auc "
-        f"{ {k: round(v['eval_auc'], 6) for k, v in depth.items()} }; total "
+        f"{ {k: round(v['eval_auc'], 6) for k, v in depth.items()} }; "
+        f"bench {bench_json['value']} ex/s, mfu_pct "
+        f"{bench_json['mfu_pct']}, hbm_util_pct "
+        f"{bench_json['hbm_util_pct']}; bench_serving "
+        f"{served['scores'] / served['seconds']:.0f} scores/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)

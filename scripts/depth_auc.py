@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Held-out AUC of the port's scanned trainer at the JAX bench's own
 depth, on one card: bench.py's training run (its flags, its defaults
-and its draw, through chip_smoke.py's `split_workload`, `depth_run` and
-`bench_compact_cap`) with a trainer seed of your choice.
+and its draw, through goctr_tpu_torch.bench's `Settings`, `train` and
+`evaluate`) with a trainer seed of your choice.
 
     python3 scripts/depth_auc.py [--rows=5000000] [--vocab=10000000]
         [--dim=64] [--batch=65536] [--epochs=4] [--eval_rows=250000]
@@ -29,6 +29,9 @@ import json
 import sys
 from pathlib import Path
 
+# the device AUC / GAUC against numpy's (chip_smoke.py's METRIC_ATOL)
+METRIC_ATOL = 1e-9
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -50,21 +53,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("depth_auc: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    from goctr_tpu_torch import bench
 
     torch.set_grad_enabled(False)
     dev = torch.device("cuda", 0)
-    hl = cs.HEADLINE
-    model_cfg = dict(hl, item_vocab=args.vocab, emb_dim=args.dim)
-    draw = cs.split_workload(args.rows, args.vocab, hl["behavior_len"],
-                             hl["u_profile_dim"], hl["ctx_dim"], cs.SEED,
-                             args.eval_rows)
-    line = cs.depth_run(torch, dev, model_cfg, draw, args.batch,
-                        args.epochs, seed=args.seed, mode=args.mode,
-                        rmw=args.rmw, compact_impl=args.compact_impl)
-    line["card"] = cs.card_line()
+    s = bench.settings([f"--{k}={getattr(args, k)}" for k in (
+        "rows", "vocab", "dim", "batch", "epochs", "eval_rows", "mode",
+        "rmw", "compact_impl")])
+    run = bench.train(s, s.draw(), dev, seed=args.seed)
+    line = {**bench.evaluate(run, dev), **run.readings(),
+            "card": bench.card_line()}
     print(line["card"], flush=True)
     print(json.dumps(line), flush=True)
+    if line["metric_err"] > METRIC_ATOL:
+        print(f"depth_auc: device metrics differ from numpy by "
+              f"{line['metric_err']}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -37,6 +37,7 @@ from goctr_tpu.parallel.scanned import (  # noqa: E402
 from goctr_tpu.parallel.sparse_ctr import SparseCTR as JaxSparseCTR  # noqa
 from goctr_tpu.parallel.sparse_trainer import (  # noqa: E402
     SparseSample as JaxSample)
+from goctr_tpu_torch import bench as port_bench  # noqa: E402
 from goctr_tpu_torch.core.metrics import roc_auc_score  # noqa: E402
 
 # bench.py --smoke (:129-133, :175-203)
@@ -59,7 +60,7 @@ def test_draw_is_bench_py(n, vocab, t, u, c):
     split_workload splits them as bench.py does (the first rows train,
     the last n_eval are held out)."""
     want, w_uids, w_oracle = bench.make_workload(n, vocab, t, u, c)
-    got, g_uids, g_oracle = cs.make_workload.__wrapped__(n, vocab, t, u, c)
+    got, g_uids, g_oracle = port_bench.make_workload(n, vocab, t, u, c)
     for f in FIELDS:
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype and np.array_equal(a, b), f
@@ -101,19 +102,22 @@ def smoke_runs():
     training labels (seed 0)."""
     torch.set_grad_enabled(False)
     cpu = torch.device("cpu")
+    smoke = port_bench.settings(["--smoke", "--cpu"])
+    assert (smoke.model_cfg(), smoke.rows, smoke.eval_rows, smoke.batch,
+            smoke.epochs, smoke.compact_cap(None)) == (
+        SMOKE_CFG, SMOKE_ROWS, SMOKE_EVAL, SMOKE_BATCH, SMOKE_EPOCHS, 0)
     draw = cs.split_workload(SMOKE_ROWS, 10_000, 8, 8, 4,
                              eval_rows=SMOKE_EVAL)
 
     def port(seed, d=draw):
-        return cs.depth_run(torch, cpu, SMOKE_CFG, d, SMOKE_BATCH,
-                            SMOKE_EPOCHS, seed=seed, compact_cap=0)
+        return cs.depth_run(torch, cpu, smoke, d, seed=seed)[1]
 
     try:
         runs = [port(s) for s in SEEDS]
-        train = draw[0]
+        train = draw.sample
         permuted = dataclasses.replace(
             train, labels=np.random.default_rng(7).permutation(train.labels))
-        control = port(0, (permuted,) + draw[1:])
+        control = port(0, draw._replace(sample=permuted))
     finally:
         torch.set_grad_enabled(True)
     return {"port": [r["eval_auc"] for r in runs],
