@@ -229,6 +229,17 @@ Phases, in order; any failure raises and the script exits nonzero:
                its requests held to predict on the same rows
                (SCORE_ATOL_TRAINED; control: the candidates one place
                on).
+ 17. bench-kernels — goctr_tpu_torch.bench_kernels (the JAX repository's
+               scripts/bench_kernels.py on the port) at the JAX script's
+               default shapes and reps: din, gather, scatter, fused,
+               segsum, stages and rowgather, then stages --parts; each
+               kernel row (K1, K2, K3, K5) held against its plain row,
+               launch counts reset just before and read just after (K1,
+               K2, K3, K4, K5 launched); then goctr_tpu_torch.
+               profile_assembly on phase 13's fixture (made again at its
+               knobs), item2vec on the card, over its 720,000 training
+               rows: the JAX script's stage lines and rows/s
+               (`[assembly]`), the matrix finite at the protocol's width.
 Phases 6 and 7 also time K1 (its forward gather and the split update's
 read, each with its own bound and main-path launch count) and K2 on the
 first step's own inputs. Then it prints the card line, the `kernels`
@@ -246,7 +257,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
-import re
 import subprocess
 import sys
 import threading
@@ -256,9 +266,13 @@ import urllib.request
 
 import numpy as np
 
-from goctr_tpu_torch import bench, bench_item2vec, bench_serving
+from goctr_tpu_torch import (
+    bench, bench_item2vec, bench_kernels, bench_serving, profile_assembly)
 from goctr_tpu_torch.bench import (
     _zipf_ranks, bench_compact_cap, card_line, counted_kernels)
+from goctr_tpu_torch.bench_kernels import TOL
+from goctr_tpu_torch.utils import timing
+from goctr_tpu_torch.utils.timing import device_events, kernel_name
 
 SEED = 0
 R_REQ, K_CAND = 32, 400            # requests × candidates per score_batch
@@ -270,12 +284,9 @@ GROUPED = dict(HEADLINE, item_vocab=100_000_000, emb_dim=16)
 # NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# kernel vs plain tolerances (|got - want| <= ATOL + RTOL·|want|):
-#  f32: both sum in f32, in different orders (warp-shuffle trees vs
-#       torch reductions) — a few f32 ulps;
-#  bf16 output: both round an f32 value that agrees to a few f32 ulps,
-#       so the outputs agree to one bf16 ulp (at most 2^-7 relative).
-TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-6, 8e-3)}
+# kernel vs plain tolerances, TOL (goctr_tpu_torch.bench_kernels, which
+# holds its kernel rows to them too): f32 (1e-6, 1e-5), bf16 output
+# (1e-6, 8e-3) as (ATOL, RTOL) of |got - want| <= ATOL + RTOL·|want|
 # scores (probabilities) through the kernels vs the plain path at bf16:
 # pooled rows differ by at most one bf16 ulp, and f32 accumulation-order
 # differences can flip the bf16 rounding of a hidden activation; on an
@@ -452,17 +463,9 @@ def batch(reqs, i):
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """`timing.cuda_ms`; `torch` is taken, and unused, as this file's call
+    sites and the sweep scripts pass it."""
+    return timing.cuda_ms(fn, iters, warmup)
 
 
 def max_err(torch, got, want, dtype_name: str, what: str) -> float:
@@ -680,54 +683,10 @@ def check_controls(torch, scorer, got, prof, bids, ctx, cands, what,
     return readings
 
 
-def _device_events(prof):
-    """(self device us, count, name) of every kernel and copy profiled."""
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue                    # host ops: their kernels are listed
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    return sorted(rows, reverse=True)
-
-
-def kernel_name(key: str) -> str:
-    """A profiler key's function name (`ns::name<...>(args)` → name)."""
-    m = re.search(r"::(\w+)", key)
-    return m[1] if m else key[:40]
-
-
 def device_ms(torch, fn, n_inputs, iters=24, by_kernel=None) -> float:
-    """Device time of one call of fn(i), from every kernel and copy that
-    `iters` calls (cycling over n_inputs input sets) ran, by
-    torch.profiler. Host launch gaps are not counted. A list given as
-    `by_kernel` receives (ms per call, name) of each kernel.
-    The profiler loses events: on an H100 most profiles miss one launch
-    of 24, and one lost a third of them. Every call runs the same
-    kernels, so each kernel's time per call is its mean time a launch
-    times its launches a call (its count over iters, rounded); a profile
-    that recorded nothing is taken again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for i in range(n_inputs):
-        fn(i)
-    torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i % n_inputs)
-            torch.cuda.synchronize()
-        rows = _device_events(prof)
-        if rows:
-            break
-    per_call = [(us / count * max(1, round(count / iters)) / 1e3, key)
-                for us, count, key in rows]
-    if by_kernel is not None:
-        by_kernel.extend(per_call)
-    return sum(ms for ms, _ in per_call)
+    """`timing.device_ms` (each kernel's mean time a launch × its launches
+    a call); `torch` is taken, and unused, as in `cuda_ms`."""
+    return timing.device_ms(fn, n_inputs, iters, by_kernel)
 
 
 def profile_batch(torch, scorer, reqs):
@@ -742,7 +701,7 @@ def profile_batch(torch, scorer, reqs):
         for i in (1, 2):
             scorer.score_batch(*batch(reqs, i))
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_events(prof)
+    rows = device_events(prof)
     busy = sum(r[0] for r in rows)
     log(f"[profile] 2 headline batches: wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms (idle share "
@@ -1524,7 +1483,7 @@ def profile_steps(torch, step, tag, steps=3):
             step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_events(prof)
+    rows = device_events(prof)
     busy = sum(r[0] for r in rows)
     log(f"[{tag}] {steps} steps: wall {wall_us / 1e3 / steps:.3f} "
         f"ms/step, device busy {busy / 1e3 / steps:.3f} ms/step (idle share "
@@ -3749,7 +3708,7 @@ def profile_rank(torch, pred, user, items):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6 / PIPE_PROFILED_CALLS
         rows = [(us / PIPE_PROFILED_CALLS, count, key)
-                for us, count, key in _device_events(prof)]
+                for us, count, key in device_events(prof)]
         if rows:
             break
     require(bool(rows), "pipeline profile: no device event recorded")
@@ -4843,6 +4802,79 @@ def depth_phase(torch, dev):
     return out, line
 
 
+# ------------------------------------------------------------ phase 17 --
+# goctr_tpu_torch.bench_kernels at the JAX script's default shapes (no
+# shape is cut; each subcommand's reps are the JAX script's): every
+# subcommand once, then the stage table's candidates (--parts)
+BENCH_KERNELS_ARGV = (["din", "gather", "scatter", "fused", "segsum",
+                       "stages", "rowgather"], ["stages", "--parts"])
+# the wrappers its kernel rows launch (K1 also as the split update's
+# read, K4 as its write)
+BENCH_KERNELS_LAUNCHED = ("gather_rows", "din_attention_pool",
+                          "fused_gather_pool", "apply_row_updates",
+                          "scatter_rows_packed")
+
+
+def bench_kernels_phase(torch, dev):
+    """Phase 17: goctr_tpu_torch.bench_kernels (`main`, as
+    `python3 -m goctr_tpu_torch.bench_kernels` runs it) over
+    BENCH_KERNELS_ARGV at the JAX script's default shapes; it holds each
+    kernel row against its plain row and returns nonzero on a failed row.
+    Launch counts reset just before and read just after: each wrapper of
+    BENCH_KERNELS_LAUNCHED launched. Then goctr_tpu_torch.profile_assembly
+    on phase 13's fixture (the port's ML-20M-statistics generator at
+    ML20M_SCALE with ML20M_KNOBS, made again), its item2vec trained on the
+    card, over phase 13's training rows: the JAX script's stage lines and
+    its rows / width / total line (`[assembly]`); the matrix finite, of
+    the protocol's width, its behavior embeddings nonzero. Returns the
+    readings."""
+    import tempfile
+
+    from goctr_tpu_torch.data.ml20m import SignalKnobs, generate_ml20m_fixture
+
+    t_phase = time.perf_counter()
+    counted = counted_kernels()
+    for f in counted.values():
+        f.launches = 0
+    for argv in BENCH_KERNELS_ARGV:
+        log(f"[bench-kernels] python3 -m goctr_tpu_torch.bench_kernels "
+            f"{' '.join(argv)}")
+        rc = bench_kernels.main(argv)
+        require(rc == 0, f"bench_kernels {argv}: exit code {rc}")
+    launches = {name: f.launches for name, f in counted.items()}
+    require(all(launches[k] for k in BENCH_KERNELS_LAUNCHED),
+            f"bench_kernels: a kernel row launched no kernel {launches}")
+    t_bench = time.perf_counter() - t_phase
+    log(f"[bench-kernels] done in {t_bench:.1f} s; launches {launches}")
+
+    args = parity_script().parse_args([f"--scale={ML20M_SCALE}"]
+                                      + ML20M_FLAGS)
+    with tempfile.TemporaryDirectory() as tmp:
+        db = f"{tmp}/ml20m.db"
+        t0 = time.perf_counter()
+        generate_ml20m_fixture(db, scale=ML20M_SCALE,
+                               knobs=SignalKnobs(**ML20M_KNOBS),
+                               oversample=args.oversample)
+        t_gen = time.perf_counter() - t0
+        log(f"[assembly] python3 -m goctr_tpu_torch.profile_assembly "
+            f"--db=<scale {ML20M_SCALE} fixture, made in {t_gen:.1f} s> "
+            f"--cnt={args.sample_cnt}")
+        x, stages = profile_assembly.profile(
+            db, args.sample_cnt, device=dev,
+            say=lambda m: log(f"[assembly] {m}"))
+    line = profile_assembly.summary(x, stages)
+    log(f"[assembly] {line}")
+    info = ml20m_info()
+    beh = x[:, slice(*info.user_behavior_range)]
+    require(0 < x.shape[0] <= args.sample_cnt and x.shape[1] == info.width
+            and bool(np.isfinite(x).all()) and bool(np.abs(beh).sum() > 0),
+            f"assembly: matrix {x.shape}, finite {np.isfinite(x).all()}")
+    log(f"[bench-kernels] phase done in {time.perf_counter() - t_phase:.1f} "
+        f"s")
+    return {"bench_s": t_bench, "stages": stages, "rows": x.shape[0],
+            "rows_per_s": x.shape[0] / max(sum(stages.values()), 1e-9)}
+
+
 def main() -> int:
     import torch
 
@@ -5061,6 +5093,10 @@ def main() -> int:
     del scorer, table, model, g_model
     torch.cuda.empty_cache()
     depth, bench_json = depth_phase(torch, dev)
+
+    # 17. the JAX repo's kernel microbench and host-assembly profiler ------
+    torch.cuda.empty_cache()
+    kb = bench_kernels_phase(torch, dev)
     k1_err = max(k1_err, e6["K1"], e7["K1"])
     k2_err = max(k2_err, e6["K2"], e7["K2"])
     train_entries = []
@@ -5144,7 +5180,9 @@ def main() -> int:
         f"bench {bench_json['value']} ex/s, mfu_pct "
         f"{bench_json['mfu_pct']}, hbm_util_pct "
         f"{bench_json['hbm_util_pct']}; bench_serving "
-        f"{served['scores'] / served['seconds']:.0f} scores/s; total "
+        f"{served['scores'] / served['seconds']:.0f} scores/s; "
+        f"bench_kernels {kb['bench_s']:.1f} s, assembly "
+        f"{kb['rows_per_s']:.0f} rows/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
