@@ -90,6 +90,7 @@ import numpy as np
 import torch
 
 from goctr_tpu_torch.core.dtypes import resolve_device
+from goctr_tpu_torch.core.profiling import span
 from goctr_tpu_torch.models.io import _flatten_params
 from goctr_tpu_torch.models.trainer import TrainerConfig, make_trainer_solver
 from goctr_tpu_torch.ops.kernels.compact import compact_runsums_block
@@ -326,7 +327,7 @@ def line_stream(tgt: torch.Tensor, rows: torch.Tensor, vocab: int):
 
 def _scatter_update(table: torch.Tensor, acc: torch.Tensor,
                     ids_flat: torch.Tensor, g_flat: torch.Tensor,
-                    topt: TableOptConfig, vocab: int) -> None:
+                    topt: TableOptConfig, vocab: int) -> torch.Tensor:
     """The unpacked modes (scanned.py:161-187, :367-380), in place on the
     [rows, D] table and its [rows] accumulator, with `scatter_add_rows`
     (ids in the table, each id's adds in stream order) where JAX
@@ -338,24 +339,29 @@ def _scatter_update(table: torch.Tensor, acc: torch.Tensor,
     then acc += ‖g‖² of each row of the stream, and each row scaled by
     lr · rsqrt(acc[id] + eps) (adagrad, after all the stream's acc adds)
     or lr (sgd) is subtracted at its id. Rows of negative ids (behavior
-    pads) are zero."""
-    g = g_flat * (ids_flat >= 0).float()[:, None]
-    if topt.update_mode == "plain":
-        tgt, rows = ids_flat.clamp_min(0), g
-    elif topt.update_mode == "sorted":
-        order = torch.sort(ids_flat, stable=True).indices
-        tgt, rows = ids_flat[order], g[order]
-    else:
-        n0 = ids_flat.shape[0]
-        tgt, rows = segment_rows_dedup(
-            ids_flat, g, vocab, pad_to=-(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP)
-    if topt.kind == "adagrad":
-        scatter_add_rows(acc[:, None], tgt, (rows * rows).sum(1)[:, None])
-        scale = topt.lr * torch.rsqrt(acc[tgt.clamp_min(0).long()]
-                                      + topt.eps)
-    else:
-        scale = torch.full(tgt.shape, topt.lr, device=g.device)
-    scatter_add_rows(table, tgt, -scale[:, None] * rows)
+    pads) are zero. Returns the overflow count, 0, on the device."""
+    with span("goctr.train.update_front"):
+        g = g_flat * (ids_flat >= 0).float()[:, None]
+        if topt.update_mode == "plain":
+            tgt, rows = ids_flat.clamp_min(0), g
+        elif topt.update_mode == "sorted":
+            order = torch.sort(ids_flat, stable=True).indices
+            tgt, rows = ids_flat[order], g[order]
+        else:
+            n0 = ids_flat.shape[0]
+            tgt, rows = segment_rows_dedup(
+                ids_flat, g, vocab,
+                pad_to=-(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP)
+    with span("goctr.train.update_rmw"):
+        if topt.kind == "adagrad":
+            scatter_add_rows(acc[:, None], tgt,
+                             (rows * rows).sum(1)[:, None])
+            scale = topt.lr * torch.rsqrt(acc[tgt.clamp_min(0).long()]
+                                          + topt.eps)
+        else:
+            scale = torch.full(tgt.shape, topt.lr, device=g.device)
+        scatter_add_rows(table, tgt, -scale[:, None] * rows)
+        return torch.zeros((), dtype=torch.int32, device=g_flat.device)
 
 
 def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
@@ -367,33 +373,40 @@ def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
     (`line_stream`, then split or kernel K6); fused2 (K7) and runfused
     (K8) on packed [V, 128] rows; dedup, sorted and plain on the [rows, D]
     table and its accumulator `acc`. Returns the overflow count (0 but
-    with compact_cap > 0 in fused), on the device."""
+    with compact_cap > 0 in fused), on the device. Its two stages are the
+    spans goctr.train.update_front, everything before the row write, and
+    goctr.train.update_rmw, the write."""
     d = g_flat.shape[1]
     mode = topt.update_mode
     if mode not in PACKED_MODES:
-        _scatter_update(table, acc, ids_flat, g_flat, topt, vocab)
-        return torch.zeros((), dtype=torch.int32, device=g_flat.device)
+        return _scatter_update(table, acc, ids_flat, g_flat, topt, vocab)
     kw = dict(lr=topt.lr, d=d, kind=topt.kind, eps=topt.eps)
     if mode != "fused":
         # sorted stream, pads = vocab last; compact_cap and rmw_impl do not
         # apply, as in JAX
-        s_ids, g_s = sort_updates(ids_flat, g_flat, vocab)
-        if mode == "fused2":
-            apply_csum_updates(table, s_ids, _cumsum_rows(g_s), skip_ge=vocab,
-                               **kw)
+        with span("goctr.train.update_front"):
+            s_ids, g_s = sort_updates(ids_flat, g_flat, vocab)
+            runs = _cumsum_rows(g_s) if mode == "fused2" else g_s
+        with span("goctr.train.update_rmw"):
+            impl = (apply_csum_updates if mode == "fused2"
+                    else apply_run_updates)
+            impl(table, s_ids, runs, skip_ge=vocab, **kw)
+            return torch.zeros((), dtype=torch.int32, device=g_flat.device)
+    with span("goctr.train.update_front"):
+        tgt, rows, packed, overflow = update_rows(ids_flat, g_flat, topt,
+                                                  vocab)
+        if group_size(d) == 1:
+            gp = packed if packed is not None else pack_grads(rows)
         else:
-            apply_run_updates(table, s_ids, g_s, skip_ge=vocab, **kw)
-        return torch.zeros((), dtype=torch.int32, device=g_flat.device)
-    tgt, rows, packed, overflow = update_rows(ids_flat, g_flat, topt, vocab)
-    kernel = topt.rmw_impl == "kernel"
-    if group_size(d) == 1:
-        gp = packed if packed is not None else pack_grads(rows)
-        impl = apply_row_updates if kernel else apply_row_updates_split
-        impl(table, tgt, gp, skip_ge=vocab, **kw)
-    else:
-        ltgt, lrows = line_stream(tgt, rows, vocab)
-        impl = apply_line_updates if kernel else apply_line_updates_split
-        impl(table, ltgt, lrows, skip_ge=packed_lines(vocab, d), **kw)
+            ltgt, lrows = line_stream(tgt, rows, vocab)
+    with span("goctr.train.update_rmw"):
+        kernel = topt.rmw_impl == "kernel"
+        if group_size(d) == 1:
+            impl = apply_row_updates if kernel else apply_row_updates_split
+            impl(table, tgt, gp, skip_ge=vocab, **kw)
+        else:
+            impl = apply_line_updates if kernel else apply_line_updates_split
+            impl(table, ltgt, lrows, skip_ge=packed_lines(vocab, d), **kw)
     return overflow
 
 
@@ -461,19 +474,26 @@ def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
     the layout of topt.update_mode (module docstring): grouped lines of
     `table_group` rows, [V, 128] rows, or [rows, D]. Returns (loss,
     overflow, new solver state) on the device; the host never waits on
-    the card here (module docstring)."""
+    the card here (module docstring). Its stages are the spans (module
+    docstring) goctr.train.lookup, .fwd_bwd, .solver and `_table_update`'s
+    .update_front and .update_rmw; the id stream's cat and the row
+    gradients' cast to f32 lie between them."""
     params = model.param_leaves()
     with torch.enable_grad():
-        emb = gather_batch_rows(
-            model, table, b_bids, b_iids, topt.sorted_gather,
-            table_group(topt.update_mode, model.emb_dim)).requires_grad_()
-        loss = batch_loss(model, emb, b_prof, b_bids, b_ctx, b_y, b_w,
-                          generator)
-        *g_dense, g_emb = torch.autograd.grad(loss, params + [emb])
-    updates, opt_state = solver.update(g_dense, opt_state, params)
+        with span("goctr.train.lookup"):
+            emb = gather_batch_rows(
+                model, table, b_bids, b_iids, topt.sorted_gather,
+                table_group(topt.update_mode, model.emb_dim)).requires_grad_()
+        with span("goctr.train.fwd_bwd"):
+            loss = batch_loss(model, emb, b_prof, b_bids, b_ctx, b_y, b_w,
+                              generator)
+            *g_dense, g_emb = torch.autograd.grad(loss, params + [emb])
+    with span("goctr.train.solver"):
+        updates, opt_state = solver.update(g_dense, opt_state, params)
+        with torch.no_grad():
+            for p, u in zip(params, updates):
+                p.add_(u)
     with torch.no_grad():
-        for p, u in zip(params, updates):
-            p.add_(u)
         ids_flat = torch.cat([b_bids.reshape(-1), b_iids])
         overflow = _table_update(table, ids_flat, g_emb.float(), topt,
                                  model.item_vocab, acc)
@@ -501,12 +521,28 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
     and its parameters are trained in place. The result's table is fresh:
     the grouped lines ([L, 128], packed_group = G, acc None) of a resident
     grouped `fused` run, else a contiguous [rows, D] tensor and its
-    [rows] acc, rows = V + table_pad_rows in dedup and V otherwise."""
+    [rows] acc, rows = V + table_pad_rows in dedup and V otherwise.
+
+    The call is the span goctr.train (module docstring), timed on
+    `device`; inside it, goctr.train.upload (the rows onto the device),
+    .resume (the table, accumulator and solver state), one .epoch an
+    epoch, each of one .step a step (its six stages: .batch, then
+    `train_step`'s) and the epoch's sync (.epoch_sync), and .return (the
+    result's unpacking)."""
     cfg = cfg or TrainerConfig()
     topt = table_opt or TableOptConfig()
-    d, v = model.emb_dim, model.item_vocab
-    _check_supported(topt, d)
+    _check_supported(topt, model.emb_dim)
     dev = resolve_device(device)
+    with span("goctr.train", dev):
+        return _train(model, sample, cfg, topt, resume_from, dev)
+
+
+def _train(model: SparseCTR, sample: SparseSample, cfg: TrainerConfig,
+           topt: TableOptConfig, resume_from: Optional[TrainedScanned],
+           dev: torch.device) -> TrainedScanned:
+    """train_sparse_scanned's call, its options checked, on its resolved
+    device."""
+    d, v = model.emb_dim, model.item_vocab
     model.to(dev)
     n = sample.rows
     bs = min(cfg.batch_size, n)
@@ -520,75 +556,88 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
                 [a, np.full((n_pad - n,) + a.shape[1:], fill, a.dtype)])
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    d_prof = pad_rows(sample.user_profile.astype(np.float32))
-    d_bids = pad_rows(sample.behavior_ids.astype(np.int32), fill=-1)
-    d_iids = pad_rows(sample.item_ids.astype(np.int32))
-    d_ctx = pad_rows(sample.ctx.astype(np.float32))
-    d_y = pad_rows(np.asarray(sample.labels, np.float32).ravel())
-    d_w = torch.cat([torch.ones(n, device=dev),
-                     torch.zeros(n_pad - n, device=dev)])
+    with span("goctr.train.upload"):
+        d_prof = pad_rows(sample.user_profile.astype(np.float32))
+        d_bids = pad_rows(sample.behavior_ids.astype(np.int32), fill=-1)
+        d_iids = pad_rows(sample.item_ids.astype(np.int32))
+        d_ctx = pad_rows(sample.ctx.astype(np.float32))
+        d_y = pad_rows(np.asarray(sample.labels, np.float32).ravel())
+        d_w = torch.cat([torch.ones(n, device=dev),
+                         torch.zeros(n_pad - n, device=dev)])
 
     # ---- params: dense tower via the solver, table via row updates -------
-    n_prev = len(resume_from.loss_curve) if resume_from is not None else 0
-    gen = trainer_generator(cfg, n_prev, dev)
-    mode = topt.update_mode
-    g = table_group(mode, d)
-    resident = g > 1 and v >= GROUPED_RESIDENT_MIN_V
-    rows = v + (table_pad_rows(bs, sample.behavior_ids.shape[1])
-                if mode == "dedup" else 0)
-    # the table (and acc) as the trainer updates them, fresh tensors
-    if resume_from is not None:
-        if resume_from.model is not model:
-            model.load_state_dict(resume_from.model.state_dict())
-        if resume_from.packed_group not in (1, group_size(d)):
-            raise ValueError(
-                f"resume_from holds lines of {resume_from.packed_group} "
-                f"rows; emb_dim {d} packs {group_size(d)}")
-        if resume_from.packed_group > 1 and g > 1:
-            table, acc = resume_from.table.to(dev, copy=True), None
-        else:
-            if resume_from.packed_group > 1:    # lines into another mode
-                w, a = unpack_table_grouped(resume_from.table.to(dev), v, d)
+    with span("goctr.train.resume"):
+        n_prev = (len(resume_from.loss_curve) if resume_from is not None
+                  else 0)
+        gen = trainer_generator(cfg, n_prev, dev)
+        mode = topt.update_mode
+        g = table_group(mode, d)
+        resident = g > 1 and v >= GROUPED_RESIDENT_MIN_V
+        rows = v + (table_pad_rows(bs, sample.behavior_ids.shape[1])
+                    if mode == "dedup" else 0)
+        # the table (and acc) as the trainer updates them, fresh tensors
+        if resume_from is not None:
+            if resume_from.model is not model:
+                model.load_state_dict(resume_from.model.state_dict())
+            if resume_from.packed_group not in (1, group_size(d)):
+                raise ValueError(
+                    f"resume_from holds lines of {resume_from.packed_group} "
+                    f"rows; emb_dim {d} packs {group_size(d)}")
+            if resume_from.packed_group > 1 and g > 1:
+                table, acc = resume_from.table.to(dev, copy=True), None
             else:
-                w = resume_from.table.to(dev)
-                a = (resume_from.acc.to(dev) if resume_from.acc is not None
-                     else torch.zeros(w.shape[0], device=dev))
-            table, acc = _layout_table(mode, w, a, v, rows)
-            del w, a
-    elif resident:
-        table, acc = model.init_params(gen, table_group=g), None
-    else:
-        w = model.init_params(gen)
-        table, acc = _layout_table(mode, w, torch.zeros(v, device=dev), v,
-                                   rows)
-        del w
+                if resume_from.packed_group > 1:  # lines into another mode
+                    w, a = unpack_table_grouped(resume_from.table.to(dev),
+                                                v, d)
+                else:
+                    w = resume_from.table.to(dev)
+                    a = (resume_from.acc.to(dev)
+                         if resume_from.acc is not None
+                         else torch.zeros(w.shape[0], device=dev))
+                table, acc = _layout_table(mode, w, a, v, rows)
+                del w, a
+        elif resident:
+            table, acc = model.init_params(gen, table_group=g), None
+        else:
+            w = model.init_params(gen)
+            table, acc = _layout_table(mode, w, torch.zeros(v, device=dev),
+                                       v, rows)
+            del w
 
-    params = model.param_leaves()
-    solver = make_trainer_solver(cfg)
-    if resume_from is not None and resume_from.opt_state is not None:
-        opt_state = [x.to(dev) for x in resume_from.opt_state]
-        _check_opt_state(opt_state, solver.init(params))
-    else:
-        opt_state = solver.init(params)
+        params = model.param_leaves()
+        solver = make_trainer_solver(cfg)
+        if resume_from is not None and resume_from.opt_state is not None:
+            opt_state = [x.to(dev) for x in resume_from.opt_state]
+            _check_opt_state(opt_state, solver.init(params))
+        else:
+            opt_state = solver.init(params)
 
     best, no_improve = float("inf"), 0
     update_overflow_max = 0
     loss_curve: list[float] = []
     epoch_times: list[float] = []
     for epoch in range(cfg.epochs):
-        te = time.perf_counter()
-        perm = epoch_order(gen, n_pad, cfg.shuffle, dev)
-        losses, overs = [], []
-        for b in range(n_batches):
-            idx = perm[b * bs:(b + 1) * bs]
-            loss, over, opt_state = train_step(
-                model, table, solver, opt_state, d_prof[idx], d_bids[idx],
-                d_iids[idx], d_ctx[idx], d_y[idx], d_w[idx], topt, gen, acc)
-            losses.append(loss)
-            overs.append(over)
-        # the epoch's one host sync: mean loss and max overflow together
-        cost, over = torch.stack([torch.stack(losses).mean(),
-                                  torch.stack(overs).max().float()]).tolist()
+        with span("goctr.train.epoch"):
+            te = time.perf_counter()
+            perm = epoch_order(gen, n_pad, cfg.shuffle, dev)
+            losses, overs = [], []
+            for b in range(n_batches):
+                with span("goctr.train.step"):
+                    with span("goctr.train.batch"):
+                        idx = perm[b * bs:(b + 1) * bs]
+                        batch = (d_prof[idx], d_bids[idx], d_iids[idx],
+                                 d_ctx[idx], d_y[idx], d_w[idx])
+                    loss, over, opt_state = train_step(
+                        model, table, solver, opt_state, *batch, topt, gen,
+                        acc)
+                    del batch   # the rows go before the next batch's come
+                losses.append(loss)
+                overs.append(over)
+            # the epoch's one host sync: mean loss and max overflow together
+            with span("goctr.train.epoch_sync"):
+                cost, over = torch.stack(
+                    [torch.stack(losses).mean(),
+                     torch.stack(overs).max().float()]).tolist()
         over = int(over)
         if over > update_overflow_max:
             update_overflow_max = over
@@ -608,17 +657,19 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
         if cfg.early_stop and no_improve >= cfg.early_stop:
             break
 
-    if resume_from is not None:
-        loss_curve = resume_from.loss_curve + loss_curve
-    if mode == "fused" and not resident:   # K1 takes contiguous tables only
-        table, acc = (x.contiguous()
-                      for x in unpack_table_grouped(table, v, d))
-    elif mode in PACKED_MODES and not resident:     # one row a line
-        table, acc = (x.contiguous() for x in unpack_table(table, d))
-    return TrainedScanned(model=model, table=table, loss_curve=loss_curve,
-                          epoch_times=epoch_times, opt_state=opt_state,
-                          acc=acc, update_overflow_max=update_overflow_max,
-                          packed_group=g if resident else 1)
+    with span("goctr.train.return"):
+        if resume_from is not None:
+            loss_curve = resume_from.loss_curve + loss_curve
+        if mode == "fused" and not resident:  # K1 takes contiguous tables
+            table, acc = (x.contiguous()
+                          for x in unpack_table_grouped(table, v, d))
+        elif mode in PACKED_MODES and not resident:     # one row a line
+            table, acc = (x.contiguous() for x in unpack_table(table, d))
+        return TrainedScanned(model=model, table=table,
+                              loss_curve=loss_curve, epoch_times=epoch_times,
+                              opt_state=opt_state, acc=acc,
+                              update_overflow_max=update_overflow_max,
+                              packed_group=g if resident else 1)
 
 
 def _layout_table(mode: str, weights: torch.Tensor, acc: torch.Tensor,

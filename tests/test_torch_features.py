@@ -14,6 +14,7 @@ to its behaviour; the futuresales regressors draw their own parameters,
 so they are held to tests/test_futuresales.py's R² bars.
 """
 import dataclasses
+import json
 import sqlite3
 
 import jax.numpy as jnp
@@ -277,34 +278,22 @@ def test_prng_pool_defaults_to_cuda(monkeypatch):
 
 
 # ------------------------------------------------------- core/profiling --
-def test_step_timer_equals_jax():
-    from goctr_tpu.core.profiling import StepTimer as JTimer
-    from goctr_tpu_torch.core.profiling import StepTimer
-
-    t, j = StepTimer(), JTimer()
-    assert t.summary() == j.summary() == {} and t.median == 0.0
-    for dt in (0.3, 0.1, 0.2, 0.5):
-        t.times.append(dt)
-        j.times.append(dt)
-    assert t.summary() == j.summary()
-    assert t.median == j.median == 0.3
-    with t:
-        pass
-    assert len(t.times) == 5 and t.times[-1] >= 0.0
-
-
 def test_trace_and_annotate_record_the_block(tmp_path):
-    """trace() writes a Chrome trace of the block into log_dir, and an
-    annotate() region inside it shows by name."""
+    """trace() writes a Chrome trace of the block into log_dir, and a
+    span() inside it shows by name, as a host op."""
     from goctr_tpu_torch.core import profiling
 
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("goctr_step"):
+        with profiling.span("goctr_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     names = [e.key for e in prof.key_averages()]
     assert "goctr_step" in names
     files = list(tmp_path.rglob("*.json"))
-    assert files and "goctr_step" in files[0].read_text()
+    assert files
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert {e.get("cat") for e in events
+            if e.get("name") == "goctr_step"} == {"cpu_op"}
+    assert [s.name for s in profiling.spans()] == ["goctr_step"]
 
 
 # ------------------------------------------------------ ops/activations --
