@@ -42,10 +42,12 @@ Phases, in order; any failure raises and the script exits nonzero:
                epoch each of "plain" and "sorted" (per-occurrence
                adagrad), which must be finite and agree with each other.
                K1 (the forward gather and the row update's read), K2,
-               K2b, K4, K5, K9, K7 and K8 are held against their plain
-               versions on the first step's own inputs (K7 and K8 to a
-               limit derived from the exact update of each line), with
-               controls that must exceed each limit, and timed beside
+               K2b, the "xla" compaction kernel (the main path's front
+               end: bit for bit with the glue it replaced), K4, K5, K9,
+               K7 and K8 are held against their plain versions on the
+               first step's own inputs (K7 and K8 to a limit derived
+               from the exact update of each line), with controls that
+               must exceed each limit, and timed beside
                their plain versions (K7 and K8 also beside the fused
                path's update of the same stream); wrong compactions and
                K7 / K8 fed a wrong stream (controls) move the first-epoch
@@ -63,9 +65,10 @@ Phases, in order; any failure raises and the script exits nonzero:
                this configuration: 3 epochs with the split line update
                (K1 read, torch, K4) and 1 epoch from the same start with
                the one-pass kernels (K6, K9) — the main path, counts reset
-               just before and read just after. K1, K2, K2b, K9, K4 and K6
-               are held against their plain versions on the first step's
-               own inputs, with controls; the first-epoch losses agree,
+               just before and read just after. K1, K2, K2b, the "xla"
+               compaction (its [capr, D] rows), K9, K4 and K6 are held
+               against their plain versions on the first step's own
+               inputs, with controls; the first-epoch losses agree,
                and K6 writing each update to its neighbour slot's line
                (control) moves that loss past the limit; small grouped
                f32 trainers on the card (grouped lines, and the other
@@ -215,10 +218,10 @@ Phases, in order; any failure raises and the script exits nonzero:
                batch 16,384, 3 epochs (62 steps), fused with the split
                update, xla compaction and bench.py's compact_cap rule.
                Launch counts reset just before each run and read just
-               after: K1, K2, K2b and K4 launched, K5-K9 not. Each
-               held-out eval_auc (and the headline's eval_gauc) must
-               clear JAX's reading of the same draw less 0.01
-               (DEPTH_BARS), the oracle's ceiling must round to
+               after: K1, K2, K2b, K4 and the "xla" compaction launched,
+               K5-K9 not. Each held-out eval_auc (and the headline's
+               eval_gauc) must clear JAX's reading of the same draw less
+               0.01 (DEPTH_BARS), the oracle's ceiling must round to
                bench.py's, device metrics agree with numpy and the
                scores against permuted held-out labels read chance. The
                headline's run then gives goctr_tpu_torch.bench's JSON
@@ -326,6 +329,9 @@ ATT0_RTOL, ATT0_ATOL_REL = 1e-3, 1e-4
 # (tiles + carries vs index_add_), so each run sum lies within 1e-5 of the
 # run's sum of |g| (~168 f32 ulps of it: runs reach ~10^5 rows)
 RUNSUM_RTOL = 1e-5
+# the "xla" compaction's packed ‖Σg‖² lane: summed in f64 and rounded once
+# by the kernel, in f32 by PyTorch's reduction in the plain version
+XLA_NSQ_RTOL = 1e-6
 # xla vs kernel compaction, first-epoch mean loss: the run sums differ by
 # f32 rounding, which flips a few bf16 roundings of the tower in later
 # steps of the epoch (2.59e-7 relative on an H100, PERF.md; the path is
@@ -857,7 +863,9 @@ def first_step(torch, start, sample, cfg, topt, dev):
     the batch of the first epoch's first indices (padded rows as the
     trainer pads them), K1's ids and the rows it gathered, K2's output and
     K2b's inputs (the gathered rows, att0, mask and the tower's gradient
-    of the pooled rows), K9's sorted stream, and the row update's inputs:
+    of the pooled rows), the update's ids and bf16 row gradients (the
+    "xla" compaction's inputs), K9's sorted stream, and the row update's
+    inputs:
     a copy of the packed table ([V, 128] rows, or grouped lines), its
     targets (slots at G = 1, lines below), the update rows K5 / K6 take
     and the new lines the split update writes with K4."""
@@ -902,10 +910,9 @@ def first_step(torch, start, sample, cfg, topt, dev):
         loss = sc.batch_loss(model, emb, prof, bids, ctx, y, w)
         g_emb = torch.autograd.grad(loss, emb)[0]
     ids_flat = torch.cat([bids.reshape(-1), iids])
-    g_flat = g_emb.float()
-    s_ids, g_s = sc.sort_updates(ids_flat, g_flat, V)
+    s_ids, g_s = sc.sort_updates(ids_flat, g_emb.float(), V)
     capr = sc.compact_slots(topt.compact_cap, s_ids.shape[0])
-    tgt, rows, packed, _ = sc.update_rows(ids_flat, g_flat, topt, V)
+    tgt, rows, packed, _ = sc.update_rows(ids_flat, g_emb, topt, V)
     if G > 1:
         tgt, upd = sc.line_stream(tgt, rows, V)
     else:
@@ -916,6 +923,7 @@ def first_step(torch, start, sample, cfg, topt, dev):
             "gather_ids": ids_flat.clamp_min(0), "emb": emb.detach(),
             "pooled": pooled.detach(),
             "s_ids": s_ids, "g_s": g_s, "capr": capr, "table": table,
+            "ids_flat": ids_flat, "g_emb": g_emb,
             "tgt": tgt, "upd": upd, "new": new, "skip": skip, "group": G,
             "topt": topt, "V": V, "D": D}
 
@@ -961,10 +969,71 @@ def check_train_gather(torch, step):
     return err, ctl
 
 
+def check_xla_compaction(torch, step):
+    """The "xla" compaction kernel against its plain version on the first
+    step's ids and bf16 row gradients: targets, overflow and the D weight
+    lanes bit for bit, the packed ‖Σg‖² lane within XLA_NSQ_RTOL, the
+    lanes past it 0. Control: the plain version with the hottest run's
+    last row and the next run's first row swapped in the sort's order,
+    which moves a row from one run to the other, must differ in some
+    row. Returns (max |Δ| of the ‖Σg‖² lane relative to it, controls)."""
+    from goctr_tpu_torch.ops.kernels import compact_xla as kx
+
+    V, D, G = step["V"], step["D"], step["group"]
+    ids, g, capr = step["ids_flat"], step["g_emb"], step["capr"]
+    packed = G == 1
+    s_ids, order = kx.sort_ids(ids, V)
+    tgt, rows, over = kx.compact_xla_rows(ids, s_ids, order, g, V, capr,
+                                          packed)
+    w_tgt, w_rows, w_over = kx.compact_xla_rows_plain(ids, s_ids, order, g,
+                                                      V, capr, packed)
+    torch.cuda.synchronize()
+    bits = lambda x: x.contiguous().view(torch.int32)
+    require(torch.equal(tgt, w_tgt), "compact_xla: targets differ from plain")
+    require(int(over) == int(w_over), "compact_xla: overflow differs")
+    require(torch.equal(bits(rows[:, :D]), bits(w_rows[:, :D])),
+            f"compact_xla: {int((rows[:, :D] != w_rows[:, :D]).sum())} Σg "
+            "entries differ from plain")
+    err = 0.0
+    if packed:
+        nsq, w_nsq = rows[:, D].double(), w_rows[:, D].double()
+        rel = (nsq - w_nsq).abs() / w_nsq.abs().clamp_min(1e-300)
+        err = float(torch.where(w_nsq == 0, (nsq != 0).double(), rel).max())
+        require(err <= XLA_NSQ_RTOL, f"compact_xla: ‖Σg‖² lane off by "
+                                     f"{err:.3g} of itself")
+        require(torch.equal(bits(rows[:, D + 1:]), bits(w_rows[:, D + 1:])),
+                "compact_xla: lanes past D not 0")
+    # the control: the hottest run's last row into the next run
+    real_end = torch.ones_like(s_ids, dtype=torch.bool)
+    real_end[:-1] = s_ids[1:] != s_ids[:-1]
+    real_end &= s_ids < V
+    ends = torch.nonzero(real_end).flatten()
+    lengths = torch.diff(ends, prepend=ends.new_full((1,), -1))
+    lengths[ends == s_ids.numel() - 1] = 0      # a next run to move into
+    e = int(ends[int(torch.argmax(lengths))])
+    swapped = order.clone()
+    swapped[[e, e + 1]] = order[[e + 1, e]]
+    wrong = kx.compact_xla_rows_plain(ids, s_ids, swapped, g, V, capr,
+                                      packed)[1]
+    ctl = {"compact_xla row moved between runs": int(
+        (bits(wrong[:, :D]) != bits(rows[:, :D])).any(1).sum())}
+    require(ctl["compact_xla row moved between runs"] > 0,
+            "compact_xla control: a row moved between runs gives the same "
+            "rows")
+    log(f"[train-kernels] compact_xla n={ids.numel()} D={D} "
+        f"{str(g.dtype).split('.')[-1]} capr={capr} "
+        f"{'packed' if packed else '[capr, D]'}: {int((w_tgt < V).sum())} "
+        f"real runs (hottest {int(lengths.max())} rows), overflow "
+        f"{int(over)}; targets and Σg bit-exact vs plain, ‖Σg‖² rel err "
+        f"{err:.3g} (limit {XLA_NSQ_RTOL}); control: a row moved between "
+        f"runs changes {ctl['compact_xla row moved between runs']} rows")
+    return err, ctl
+
+
 def check_train_kernels(torch, step):
-    """K1, K2, K2b, K9 and K4 against their plain versions on the first
-    step's inputs, each with a control that must exceed its limit.
-    Returns the max errors and the control readings."""
+    """K1, K2, K2b, the "xla" compaction, K9 and K4 against their plain
+    versions on the first step's inputs, each with a control that must
+    exceed its limit. Returns the max errors and the control readings."""
     from goctr_tpu_torch.ops.kernels import compact as k9
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.kernels import row_optimizer as k4
@@ -1014,6 +1083,8 @@ def check_train_kernels(torch, step):
         f"{ATT0_ATOL_REL}·max); control: zeroed d_behaviors leaves "
         f"{ctl['K2b d_behaviors zeroed']} entries outside")
     del got, want
+    errs["compact_xla"], c = check_xla_compaction(torch, step)
+    ctl.update(c)
     # K9
     s_ids, g_s, capr = step["s_ids"], step["g_s"], step["capr"]
     tgt, rows, over = k9.compact_runsums_block(s_ids, g_s, V, capr)
@@ -1343,12 +1414,48 @@ def row_sector_bytes(torch, ids, group, dim, stride) -> int:
     return int((last - first + 1).sum()) * 32
 
 
+def time_xla_compaction(torch, step):
+    """Device ms of the "xla" compaction kernel and of its plain version
+    (the glue it replaced) on the first step's inputs, by kernel, and its
+    bound: the bytes it needs, each once (the sorted ids and the sort's
+    permutation, the rows, the output rows and targets); the log line
+    also gives the bound with the rows and the ids read twice, as the
+    design reads them."""
+    from goctr_tpu_torch.ops.kernels import compact_xla as kx
+    from goctr_tpu_torch.ops.kernels.row_optimizer import LANES
+
+    V, D, G = step["V"], step["D"], step["group"]
+    ids, g, capr = step["ids_flat"], step["g_emb"], step["capr"]
+    packed = G == 1
+    s_ids, order = kx.sort_ids(ids, V)
+    n, n0 = s_ids.numel(), ids.numel()
+    parts = []
+    r = dict(
+        ms=device_ms(torch, lambda i: kx.compact_xla_rows(
+            ids, s_ids, order, g, V, capr, packed), 1, by_kernel=parts),
+        plain_ms=device_ms(torch, lambda i: kx.compact_xla_rows_plain(
+            ids, s_ids, order, g, V, capr, packed), 1, iters=6),
+        sort_ms=device_ms(torch, lambda i: kx.sort_ids(ids, V), 1),
+        library_ms=None,
+        bytes=n * 12 + n0 * D * g.element_size()
+        + capr * ((LANES if packed else D) * 4 + 4) + 4,
+        flops=n0 * D)
+    two_reads = r["bytes"] + n * 12 + n0 * D * g.element_size()
+    log(f"[train-kernels] compact_xla by kernel (D={D}), device ms per "
+        f"call: " + ", ".join(f"{kernel_name(key)} {ms:.5f}"
+                              for ms, key in parts)
+        + f"; the id sort before it {r['sort_ms']:.5f}; bound with the rows "
+        f"and ids read twice {two_reads / HBM_BYTES_PER_S * 1e3:.5f} ms "
+        f"({two_reads} B)")
+    return r
+
+
 def time_train_kernels(torch, step):
     """Device ms of K1 (the forward gather and the split update's read),
-    K2, K2b, K9, K4 and K5 or K6 and their plain versions (K1's and K4's
-    library calls; the split update beside the one-pass one) on the first
-    step's inputs, with their bounds. The timed updates run on the step's
-    own copy of the table."""
+    K2, K2b, the "xla" compaction, K9, K4 and K5 or K6 and their plain
+    versions (K1's and K4's library calls; the split update beside the
+    one-pass one) on the first step's inputs, with their bounds. The
+    timed updates run on the step's own copy of the table."""
     from goctr_tpu_torch.ops.kernels import compact as k9
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.kernels import row_gather as k1
@@ -1403,6 +1510,7 @@ def time_train_kernels(torch, step):
         plain_ms=device_ms(torch, lambda i: k2.din_attention_pool_bwd_plain(
             *pool), 1, iters=6),
         library_ms=None, bytes=b2, flops=f2)
+    out["compact_xla"] = time_xla_compaction(torch, step)
     s_ids, g_s, capr = step["s_ids"], step["g_s"], step["capr"]
     n = s_ids.numel()
     k9_parts = []
@@ -1740,9 +1848,10 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
     the JAX bench workload, batch TRAIN_BATCH, from a start drawn from
     `gen` (the table as the trainer keeps it: [V, D] rows, or grouped lines
     when D packs G > 1 rows a line). On the first step's inputs, K1, K2,
-    K2b, K9, K4 and the one-pass update (K5 or K6) are held against their
-    plain versions and timed, and K7 and K8 too when a variant trains
-    fused2 or runfused; `small_cases` are the small card-vs-CPU trainers.
+    K2b, the "xla" compaction, K9, K4 and the one-pass update (K5 or K6)
+    are held against their plain versions and timed, and K7 and K8 too
+    when a variant trains fused2 or runfused; `small_cases` are the small
+    card-vs-CPU trainers.
     The main path, counts reset just before and read just after:
     TRAIN_EPOCHS epochs with the split update and xla compaction, one
     epoch from the same start for each (label, TableOptConfig change) of
@@ -1805,7 +1914,8 @@ def train_phase(torch, dev, gen, reqs, kernels, tag, model_cfg, rows,
 
     # the main path: counts reset just before, read just after
     path = ["gather_rows", "din_attention_pool", "din_attention_pool_bwd",
-            "scatter_rows_packed", "compact_runsums_block", rmw.__name__]
+            "scatter_rows_packed", "compact_runsums_block",
+            "compact_xla_rows", rmw.__name__]
     path += [k for m, k in (("fused2", "apply_csum_updates"),
                             ("runfused", "apply_run_updates"))
              if m in sorted_modes]
@@ -4651,7 +4761,8 @@ DEPTH_CEILING = {"headline": (0.8734, 4), "baseline5": (0.872, 3)}
 DEPTH_CONTROL_ATOL = 0.02
 # the training path's kernels: launched in every depth run, or never
 DEPTH_LAUNCHED = ("gather_rows", "din_attention_pool",
-                  "din_attention_pool_bwd", "scatter_rows_packed")
+                  "din_attention_pool_bwd", "scatter_rows_packed",
+                  "compact_xla_rows")
 DEPTH_IDLE = ("compact_runsums_block", "apply_row_updates",
               "apply_line_updates", "apply_csum_updates",
               "apply_run_updates", "fused_gather_pool")
@@ -5119,6 +5230,12 @@ def main() -> int:
             ("K4", "scatter_rows_packed", "row_scatter.cu",
              "goctr_tpu/ops/pallas/row_optimizer.py:824", t6, l6,
              "scatter_rows_packed"),
+            ("compact_xla", "compact_xla (training)", "compact_xla.cu",
+             "goctr_tpu/parallel/scanned.py:296-311", t6, l6,
+             "compact_xla_rows"),
+            ("compact_xla", "compact_xla (grouped training)",
+             "compact_xla.cu", "goctr_tpu/parallel/scanned.py:296-311", t7,
+             l7, "compact_xla_rows"),
             ("K9", "compact_runsums_block", "compact_runsums.cu",
              "goctr_tpu/ops/pallas/compact.py:129", t6, l6,
              "compact_runsums_block"),

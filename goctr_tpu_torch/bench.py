@@ -274,6 +274,7 @@ def counted_kernels() -> dict:
     """The launch-counted wrappers of the training paths, by name (each
     adds one to `.launches` where it launches its kernel)."""
     from goctr_tpu_torch.ops.kernels import compact as k9
+    from goctr_tpu_torch.ops.kernels import compact_xla as kx
     from goctr_tpu_torch.ops.kernels import din_attention as k2
     from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
     from goctr_tpu_torch.ops.kernels import row_gather as k1
@@ -283,8 +284,8 @@ def counted_kernels() -> dict:
     return {f.__name__: f for f in (
         k1.gather_rows, k2.din_attention_pool, k2.din_attention_pool_bwd,
         ro.scatter_rows_packed, k9.compact_runsums_block,
-        ro.apply_row_updates, ro.apply_line_updates, ro.apply_csum_updates,
-        k8.apply_run_updates, k3.fused_gather_pool)}
+        kx.compact_xla_rows, ro.apply_row_updates, ro.apply_line_updates,
+        ro.apply_csum_updates, k8.apply_run_updates, k3.fused_gather_pool)}
 
 
 @dataclasses.dataclass

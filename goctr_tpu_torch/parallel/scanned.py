@@ -15,7 +15,8 @@ table's layout and its update, as in the JAX trainer:
   fused     packed [V, 128] rows (w | acc | 0)  sort the ids, sum each id's
             at D >= 64; grouped lines below:    rows (ops/segsum.py, or
             G = 128 // (D+1) rows a line,       with compact_cap > 0 the
-            [ceil(V/G), 128]                    compaction: rank-sort glue
+            [ceil(V/G), 128]                    compaction: the rank-sort
+                                                arithmetic in one kernel,
                                                 or K9); on grouped lines
                                                 sum the rows of a line
                                                 (`line_stream`); then split
@@ -94,6 +95,11 @@ from goctr_tpu_torch.core.profiling import span
 from goctr_tpu_torch.models.io import _flatten_params
 from goctr_tpu_torch.models.trainer import TrainerConfig, make_trainer_solver
 from goctr_tpu_torch.ops.kernels.compact import compact_runsums_block
+# compact_rank_sort: the rank-sort compaction's glue, kept as
+# `_compact_xla` for the mesh trainer (parallel/train.py) and the tests
+from goctr_tpu_torch.ops.kernels.compact_xla import (
+    compact_rank_sort as _compact_xla, compact_xla_rows, sort_ids,
+)
 from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
     LANES, ROWS_PER_STEP, apply_csum_updates, apply_line_updates,
@@ -220,29 +226,6 @@ def _check_supported(topt: TableOptConfig, emb_dim: int) -> None:
         raise ValueError(f"unknown compact_impl {topt.compact_impl!r}")
 
 
-def _compact_xla(s_ids: torch.Tensor, g_s: torch.Tensor, vocab: int,
-                 capr: int):
-    """The JAX trainer's rank-sort compaction (scanned.py:296-311): run
-    sums as differences of consecutive run-end cumsum rows, the first capr
-    real run ends selected by one stable sort."""
-    n, d = g_s.shape
-    dev = g_s.device
-    c = _cumsum_rows(g_s)
-    is_end = torch.cat([s_ids[1:] != s_ids[:-1],
-                        torch.ones(1, dtype=torch.bool, device=dev)])
-    real_end = is_end & (s_ids < vocab)
-    pos = torch.arange(n, dtype=torch.int32, device=dev)
-    sel = torch.sort(torch.where(real_end, pos, n + pos),
-                     stable=True).indices[:capr]
-    sel_real = real_end[sel]
-    c_sel = c[sel]
-    prev = torch.cat([c_sel.new_zeros((1, d)), c_sel[:-1]])
-    rows = torch.where(sel_real[:, None], c_sel - prev, 0.0)
-    tgt = torch.where(sel_real, s_ids[sel], vocab + 1 + pos[:capr])
-    overflow = torch.clamp(real_end.sum() - capr, min=0).to(torch.int32)
-    return tgt.to(torch.int32), rows, overflow
-
-
 def sort_updates(ids_flat: torch.Tensor, g_flat: torch.Tensor,
                  vocab: int):
     """The compaction front end's sorted stream: pads (-1) become id
@@ -274,27 +257,37 @@ def update_rows(ids_flat: torch.Tensor, g_flat: torch.Tensor,
     """One batch's row gradients summed per id by the front end: (tgt [m]
     int32, pairwise distinct below vocab, junk targets past it; rows
     [m, D] f32, each real target's Σg and zeros elsewhere; packed, the
-    [m, 128] (Σg | ‖Σg‖² | 0) rows where the front end makes them (K9),
-    else None; overflow, the int32 count of unique rows the compaction
-    cap dropped, on the device). ids_flat [n] int32 (-1 = behavior pad,
-    contributes nothing), g_flat [n, D] f32."""
+    [m, 128] (Σg | ‖Σg‖² | 0) rows where the front end makes them (K9,
+    and the "xla" compaction at G = 1), else None; overflow, the int32
+    count of unique rows the compaction cap dropped, on the device).
+    ids_flat [n] int32 (-1 = behavior pad, contributes nothing), g_flat
+    [n, D] in the compute dtype: the paths that sum in f32 cast it there
+    (exact), the "xla" compaction (`compact_xla_rows`) reads bf16 or f32
+    rows as they are."""
     n0, d = g_flat.shape
     n_to = -(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP
     if not topt.compact_cap:
-        tgt, rows = segment_rows_dedup(ids_flat, g_flat, vocab, pad_to=n_to)
+        tgt, rows = segment_rows_dedup(ids_flat, g_flat.float(), vocab,
+                                       pad_to=n_to)
         return tgt, rows, None, torch.zeros(
             (), dtype=torch.int32, device=g_flat.device)
-    s_ids, g_s = sort_updates(ids_flat, g_flat, vocab)
     capr = compact_slots(topt.compact_cap, n_to)
     if topt.compact_impl == "kernel":
         # the JAX trainer takes the kernel only for vocab < 2^24 because
         # its ids ride an f32 matmul on the TPU; K9 keeps ids in int32, so
         # only its D < 127 holds here (it raises otherwise, as JAX does)
+        s_ids, g_s = sort_updates(ids_flat, g_flat.float(), vocab)
         tgt, packed, overflow = compact_runsums_block(s_ids, g_s, vocab,
                                                       capr)
         return tgt, packed[:, :d], packed, overflow
-    tgt, rows, overflow = _compact_xla(s_ids, g_s, vocab, capr)
-    return tgt, rows, None, overflow
+    s_ids, order = sort_ids(ids_flat, vocab)
+    if group_size(d) > 1:       # line_stream sums the [m, D] rows by line
+        tgt, rows, overflow = compact_xla_rows(ids_flat, s_ids, order,
+                                               g_flat, vocab, capr, False)
+        return tgt, rows, None, overflow
+    tgt, packed, overflow = compact_xla_rows(ids_flat, s_ids, order, g_flat,
+                                             vocab, capr, True)
+    return tgt, packed[:, :d], packed, overflow
 
 
 def line_stream(tgt: torch.Tensor, rows: torch.Tensor, vocab: int):
@@ -341,7 +334,7 @@ def _scatter_update(table: torch.Tensor, acc: torch.Tensor,
     or lr (sgd) is subtracted at its id. Rows of negative ids (behavior
     pads) are zero. Returns the overflow count, 0, on the device."""
     with span("goctr.train.update_front"):
-        g = g_flat * (ids_flat >= 0).float()[:, None]
+        g = g_flat.float() * (ids_flat >= 0).float()[:, None]
         if topt.update_mode == "plain":
             tgt, rows = ids_flat.clamp_min(0), g
         elif topt.update_mode == "sorted":
@@ -372,7 +365,9 @@ def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
     rows at G = 1 (split, or kernel K5) or grouped [L, 128] lines below
     (`line_stream`, then split or kernel K6); fused2 (K7) and runfused
     (K8) on packed [V, 128] rows; dedup, sorted and plain on the [rows, D]
-    table and its accumulator `acc`. Returns the overflow count (0 but
+    table and its accumulator `acc`. g_flat [n, D] is in the compute
+    dtype; each path that sums in f32 casts it (exact), the "xla"
+    compaction reads it as it is. Returns the overflow count (0 but
     with compact_cap > 0 in fused), on the device. Its two stages are the
     spans goctr.train.update_front, everything before the row write, and
     goctr.train.update_rmw, the write."""
@@ -385,7 +380,7 @@ def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
         # sorted stream, pads = vocab last; compact_cap and rmw_impl do not
         # apply, as in JAX
         with span("goctr.train.update_front"):
-            s_ids, g_s = sort_updates(ids_flat, g_flat, vocab)
+            s_ids, g_s = sort_updates(ids_flat, g_flat.float(), vocab)
             runs = _cumsum_rows(g_s) if mode == "fused2" else g_s
         with span("goctr.train.update_rmw"):
             impl = (apply_csum_updates if mode == "fused2"
@@ -476,8 +471,8 @@ def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
     overflow, new solver state) on the device; the host never waits on
     the card here (module docstring). Its stages are the spans (module
     docstring) goctr.train.lookup, .fwd_bwd, .solver and `_table_update`'s
-    .update_front and .update_rmw; the id stream's cat and the row
-    gradients' cast to f32 lie between them."""
+    .update_front and .update_rmw; the id stream's cat lies between
+    them."""
     params = model.param_leaves()
     with torch.enable_grad():
         with span("goctr.train.lookup"):
@@ -495,7 +490,7 @@ def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
                 p.add_(u)
     with torch.no_grad():
         ids_flat = torch.cat([b_bids.reshape(-1), b_iids])
-        overflow = _table_update(table, ids_flat, g_emb.float(), topt,
+        overflow = _table_update(table, ids_flat, g_emb, topt,
                                  model.item_vocab, acc)
     return loss.detach(), overflow, opt_state
 

@@ -14,9 +14,14 @@ d_behaviors and d_item (for float32 inputs K2b and its plain version both
 work in float64: a zero item row's d_item cancels over t, and float32
 rounding alone moves it by ~1e-5 of itself); its d_att0 sums B rows in
 another order (atol 1e-5, rtol 1e-5). K4 is a copy — bit exact on every
-touched row, and every other row unchanged. K9 returns the same targets and overflow;
-its run sums add the same f32 rows in another order, so each lies within
-1e-5 of the run's sum of |g| (plus 1e-6). K5 and K6 round each term as
+touched row, and every other row unchanged. The "xla" compaction's
+kernel adds the same f32 terms in the same order as its plain version
+(the glue's blocked cumsum and run-end differences) — targets, overflow
+and Σg bit exact; its packed ‖Σg‖² lane is summed in f64 and rounded
+once, against PyTorch's f32 sum — rtol 1e-6. K9 returns the same
+targets and overflow; its run sums add the same f32 rows in another
+order, so each lies within 1e-5 of the run's sum of |g| (plus 1e-6). K5
+and K6 round each term as
 the plain version does; only rsqrtf may differ from torch.rsqrt — rtol
 1e-6, atol 1e-7, and untouched lines bit exact; under sgd (no rsqrt)
 the lines are bit exact. K7 and K8 take gradient
@@ -45,6 +50,7 @@ import pytest
 import torch
 
 from goctr_tpu_torch.ops.kernels import compact as k9
+from goctr_tpu_torch.ops.kernels import compact_xla as kx
 from goctr_tpu_torch.ops.kernels import din_attention as k2
 from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
 from goctr_tpu_torch.ops.kernels import row_gather as k1
@@ -54,6 +60,7 @@ from goctr_tpu_torch.ops.scatter import scatter_add_rows
 from goctr_tpu_torch.ops.segsum import _cumsum_rows
 from goctr_tpu_torch.parallel.embedding import _dedup_flat
 from goctr_tpu_torch.parallel.step_cases import sample_arrays, step_cases
+from test_torch_compact_xla import COMPACTION_CASES, compaction_case
 
 
 @pytest.fixture
@@ -484,6 +491,89 @@ def test_compact_kernel_matches_plain(cuda, case):
     assert bool((rows[:, d + 1:] == 0).all())
     again = k9.compact_runsums_block(s_ids, g, vocab, capr)
     assert all(torch.equal(x, y) for x, y in zip(again, (tgt, rows, over)))
+
+
+# the "xla" compaction's kernel: the CPU tests' streams at D 64 (packed
+# rows) and 16 (grouped lines), bf16 and f32; widths and layouts that take
+# the other routes (P = 4 columns a lane at D = 126, element loads at an
+# odd D and for rows off their alignment); and the benchmark cells' full
+# shapes, zipf ids with a tenth pads: (rows, vocab, D, capr)
+XLA_CELL_STREAMS = {"cell 1": (65_536 * 33, 10_000_000, 64, 596_992),
+                    "cell 2": (65_536 * 33, 100_000_000, 16, 768_000),
+                    "cell 3": (16_384 * 257, 10_000_000, 64, 1_048_576)}
+
+
+def _xla_cell_stream(cell, dev):
+    n0, vocab, d, capr = XLA_CELL_STREAMS[cell]
+    rng = np.random.default_rng(11)
+    ranks = np.minimum(rng.zipf(1.05, n0), vocab) - 1
+    ids = (ranks * 2_654_435_761) % vocab          # hot ids spread out
+    ids[rng.random(n0) < 0.1] = -1
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    g = torch.randn(n0, d, generator=gen, device=dev).to(torch.bfloat16)
+    return ids, g, vocab, capr
+
+
+def _check_xla_compaction(ids, g, vocab, capr):
+    """The kernel against its plain version on the card: targets,
+    overflow and the D weight lanes bit for bit; the packed ‖Σg‖² lane
+    within rtol 1e-6 (f64 then rounded once, against PyTorch's f32 sum),
+    the lanes past it 0; a second call bit for bit; one launch a call."""
+    d = g.shape[1]
+    packed = tro.group_size(d) == 1
+    s_ids, order = kx.sort_ids(ids, vocab)
+    before = kx.compact_xla_rows.launches
+    tgt, rows, over = kx.compact_xla_rows(ids, s_ids, order, g, vocab, capr,
+                                          packed)
+    again = kx.compact_xla_rows(ids, s_ids, order, g, vocab, capr, packed)
+    w_tgt, w_rows, w_over = kx.compact_xla_rows_plain(ids, s_ids, order, g,
+                                                      vocab, capr, packed)
+    torch.cuda.synchronize()
+    assert kx.compact_xla_rows.launches == before + 2
+    assert torch.equal(tgt, w_tgt) and int(over) == int(w_over)
+    bits = lambda x: x.contiguous().view(torch.int32)
+    assert torch.equal(bits(rows[:, :d]), bits(w_rows[:, :d]))
+    if packed:
+        torch.testing.assert_close(rows[:, d], w_rows[:, d], rtol=1e-6,
+                                   atol=0.0)
+        assert torch.equal(bits(rows[:, d + 1:]), bits(w_rows[:, d + 1:]))
+    assert all(torch.equal(bits(x), bits(y))
+               for x, y in zip(again, (tgt, rows, over)))
+    return int((tgt < vocab).sum()), int(over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 16])
+@pytest.mark.parametrize("name", list(COMPACTION_CASES))
+def test_compact_xla_kernel_matches_plain(cuda, name, d, dtype):
+    ids, g, vocab, capr = compaction_case(name, d, dtype)
+    _check_xla_compaction(ids.to(cuda), g.to(cuda), vocab, capr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["d=126", "d=63", "g unaligned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_compact_xla_kernel_on_other_routes(cuda, route, dtype):
+    d = {"d=126": 126, "d=63": 63}.get(route, 64)
+    ids, g, vocab, capr = compaction_case("hot run", d, dtype)
+    g = g.to(cuda)
+    if route == "g unaligned":
+        buf = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)
+        g_off = buf[1:].view(g.shape)
+        g_off.copy_(g)
+        g = g_off
+    _check_xla_compaction(ids.to(cuda), g, vocab, capr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(XLA_CELL_STREAMS))
+def test_compact_xla_kernel_at_the_cells_shapes(cuda, cell):
+    n_real, over = _check_xla_compaction(*_xla_cell_stream(cell, cuda))
+    assert n_real > 100_000
 
 
 def _rmw_inputs(v, d, group, n, dev, seed=7):

@@ -71,9 +71,9 @@ def test_scan_sees_imports():
 
 def test_every_kernel_source_is_built_for_sm90a():
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["compact_runsums", "csum_rmw", "din_attention",
-                       "din_attention_bwd", "gather_pool", "row_gather",
-                       "row_rmw", "row_scatter", "run_rmw"]
+    assert sources == ["compact_runsums", "compact_xla", "csum_rmw",
+                       "din_attention", "din_attention_bwd", "gather_pool",
+                       "row_gather", "row_rmw", "row_scatter", "run_rmw"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in sources:
         lib = _build.library_path(name)
