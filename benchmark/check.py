@@ -1,6 +1,6 @@
-"""The comparison that decides `correct`: the program's first three steps
-against the plain reference's over the same inputs, and each window's
-work against what it was asked.
+"""The comparison that decides `correct`, the same for every family: the
+program's first three steps against the plain reference's over the same
+inputs, and each window's work against what it was asked.
 
   loss_gap           the largest relative gap of a set-up call's loss
                      (step 1's; the mean of steps 2-3's, which the
@@ -39,7 +39,7 @@ from __future__ import annotations
 import math
 import statistics
 
-from benchmark.reference import Readings
+from benchmark.families import Readings
 
 # leaves whose reference gradient is under this share of the median leaf's
 # are left out of the change numbers

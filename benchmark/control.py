@@ -7,9 +7,10 @@ size on the card; the benchmark's runs do not run this.
 For each of --seeds: the program's first three steps (set-up's two
 calls, as a run makes them) against the reference's (check.py's
 numbers: the lower readings). For each of
---control-seeds: in the program's place, the reference computed in
-float8 e4m3 with a per-tensor scale (the control: the precision below the
-configuration's bfloat16), and the reference with half of each batch
+--control-seeds: in the program's place, the reference computed in the
+precision below the configuration's (the control; the family's
+`control`: for sparse_din's bfloat16, float8 e4m3 with a per-tensor
+scale, kind "float8"), and the reference with half of each batch
 left out and the mean taken over the rest (a planted fault). A step that
 returns its state unchanged reads 1 on change_median_gap and
 change_table_gap by construction and is not run. Prints one JSON line a reading.
@@ -21,8 +22,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# the precision below the configurations' bfloat16
-CONTROL = "float8_e4m3"
 sys.path.insert(0, str(ROOT))
 
 
@@ -34,6 +33,7 @@ def readings(bench, name: str, seeds, control_seeds, device, out=print):
     from benchmark import check, harness
 
     cell = bench.cell(name)
+    control_kind, precision = cell.family.control(cell.config)
     rows = []
     for seed in list(seeds) + [s for s in control_seeds if s not in seeds]:
         t0 = time.perf_counter()
@@ -47,8 +47,8 @@ def readings(bench, name: str, seeds, control_seeds, device, out=print):
             gc.collect()
             kinds["program"] = (first, over)
         if seed in control_seeds:
-            kinds["float8"] = (harness.reference_first(
-                cell, prep, seed, device, precision=CONTROL), 0)
+            kinds[control_kind] = (harness.reference_first(
+                cell, prep, seed, device, precision=precision), 0)
             kinds["half_batch"] = (harness.reference_first(
                 cell, prep, seed, device, half_batch=True), 0)
         for kind, (r, over) in kinds.items():

@@ -1,5 +1,6 @@
 """Plain reference of the sparse DIN ranker's first training steps in
-PyTorch, written from the model's description and importing nothing of
+PyTorch (the `sparse_din` family's; families/__init__.py has the
+interface), written from the model's description and importing nothing of
 the program.
 
 The model (Zhou et al., arXiv:1706.06978, as go-ctr implements it): each
@@ -29,10 +30,11 @@ half of each batch only: a planted fault.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Optional
 
 import torch
+
+from benchmark.families import Readings, norm
 
 FP8_MAX = 448.0          # largest finite float8 e4m3 value
 
@@ -98,37 +100,24 @@ def bce(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             + torch.log1p(torch.exp(-torch.abs(z)))).mean()
 
 
-@dataclasses.dataclass
-class Readings:
-    """What the first steps of training show: each step's loss, each
-    leaf's first gradient as the optimizer gets it, each leaf's change
-    over the steps (norms in float64; the item table is leaf "table")."""
-    losses: list
-    grad: dict
-    change: dict
-
-
-def norm(x: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(x.double()))
-
-
-def first_steps(model: dict, train: dict, table_opt: dict, dense0: dict,
-                table0: torch.Tensor, batches: list, *,
+def first_steps(config: dict, weights, batches: list, *,
                 precision: Optional[str] = None,
                 half_batch: bool = False) -> Readings:
-    """Train from dense0 and table0 [V, D] over `batches` (dicts of
-    device tensors: user_profile, behavior_ids, item_ids, ctx, labels),
-    one step each, and read the steps, at `precision` (by default the
-    configuration's compute dtype). Only the rows the batches touch are
-    held and updated."""
+    """Train from weights = (dense leaves, table [V, D]) over `batches`
+    (dicts of device tensors: user_profile, behavior_ids, item_ids, ctx,
+    labels), one step each, and read the steps (one loss a step), at
+    `precision` (by default the configuration's compute dtype). Only the
+    rows the batches touch are held and updated."""
+    dense0, table0 = weights
+    model, train = config["model"], config["trainer"]
     prev_tf32 = (torch.backends.cuda.matmul.allow_tf32,
                  torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         q = rounding(precision or model["compute_dtype"])
-        return _first_steps(model, train, table_opt, dense0, table0,
-                            batches, q, half_batch)
+        return _first_steps(model, train, config["table_opt"], dense0,
+                            table0, batches, q, half_batch)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev_tf32

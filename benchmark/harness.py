@@ -1,21 +1,25 @@
-"""One run of one cell: set-up, the window, the check.
+"""One run of one cell: set-up, the window, the check, for any family
+(families/__init__.py has the interface; the cell's family and reference
+come from its configuration).
 
 Set-up draws the traffic and the weights on the device from the seed and
-drives the trainer through its first three steps in two calls, step 1
-alone and steps 2-3 together (program.py), which builds and loads every
+drives the program through its first three steps in two calls, step 1
+alone and steps 2-3 together (CALLS), which builds and loads every
 kernel the window runs. The window's epochs E are the run's seconds over
-the cell's stated epoch time (cells/<cell>.json `epoch_s`, an epoch's
-time on the card when the cell was made), rounded, at least 2: a fixed
+the cell's stated epoch time (cells/<cell>.json `epoch_s`, the window's
+seconds an epoch on the card, its `epoch_why` says when and how it was
+taken), rounded, at least 2: a fixed
 amount of work for a given run length, the same in every run, so that a
-rate never moves with E. The window is one call of the trainer over E
+rate never moves with E. The window is one call of the program over E
 epochs of the draw, resumed from the second call's result. With `trace`
 the untraced window runs first, for the rate that the step's shares and
 the idle share are taken over, and then the same call again under
 torch.profiler. Once the windows have closed, and the program's state is
-freed, the reference follows the first three steps (reference.py) on the
-rows the trainer's own order gave each step, and check.py compares; it
-also holds each window to the work it was asked for: E epochs, and every
-counted kernel launched as many times a step as in steps 2-3.
+freed, the reference follows the first three steps on the rows the
+program's own order gave each step (the family's `warm_batches`), and
+check.py compares; it also holds each window to the work it was asked
+for: E epochs, and every counted kernel launched as many times a step as
+in steps 2-3.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ import time
 
 import torch
 
-from benchmark import check, counts, reference, trace, traffic, weights
-from benchmark.program import Program
+from benchmark import check, counts, trace
+from benchmark.families import Inputs, Readings
 from benchmark.registry import Bench, Cell
 
 WARM_STEPS = 3
@@ -44,69 +48,23 @@ LOST_SHARE = 0.01
 TRACE_BUDGET_S = 300.0
 
 
-@dataclasses.dataclass
-class Prepared:
-    """A cell's inputs: the draw on the host, and what the harness counts
-    on its own draw."""
-    arrays: dict
-    cap: int
-    unique_share: float
-
-
-def prepare(cell: Cell, seed: int, device: torch.device) -> Prepared:
-    m, law = cell.config["model"], cell.traffic
-    d = traffic.draw(law, m["item_vocab"], m["u_profile_dim"], m["ctx_dim"],
-                     seed, device)
-    if d.rows < WARM_STEPS * law["batch"]:
+def prepare(cell: Cell, seed: int, device: torch.device) -> Inputs:
+    inputs = cell.family.draw(cell.config, cell.traffic, seed, device)
+    if inputs.rows < WARM_STEPS * cell.traffic["batch"]:
         raise ValueError("the draw holds fewer rows than the first steps")
-    out = Prepared(d.host(), traffic.compact_cap(d, law["batch"]),
-                   traffic.unique_share(d, law["batch"]))
-    del d
-    return out
+    return inputs
 
 
-def program_first(cell: Cell, prep: Prepared, seed: int,
+def program_first(cell: Cell, prep: Inputs, seed: int,
                   device: torch.device):
     """(Program, Readings, state after the first steps, overflow, the
     counted kernels' launches in the call of steps 2-3)."""
-    m, t = cell.config["model"], cell.traffic["t"]
-    prog = Program(cell.config, t, cell.traffic["batch"], prep.cap, device)
-    dense0 = weights.draw_dense(m, t, seed, device)
-    table0 = weights.draw_table(m, t, seed, device)
+    fam = cell.family
+    prog = fam.Program(cell.config, cell.traffic, prep, device)
+    weights = fam.initial(cell.config, cell.traffic, seed, device)
     readings, state, over, counted = prog.first_steps(
-        prep.arrays, dense0, table0, seed, CALLS)
+        prep.arrays, weights, seed, CALLS)
     return prog, readings, state, over, counted
-
-
-def trainer_order(seed: int, epochs_done: int, n: int, shuffle: bool,
-                  device: torch.device) -> torch.Tensor:
-    """The order in which the trainer takes the n rows of a call's epoch,
-    as goctr_tpu_torch documents it (parallel/scanned.py
-    `trainer_generator`, `epoch_order`; frozen copy): a randperm from a
-    generator on the device seeded seed × 1,000,003 + the epochs already
-    in the state handed in."""
-    if not shuffle:
-        return torch.arange(n, device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) * 1_000_003 + epochs_done)
-    return torch.randperm(n, generator=gen, device=device)
-
-
-def warm_batches(cell: Cell, prep: Prepared, seed: int,
-                 device: torch.device) -> list:
-    """The first steps' batches, on the rows the trainer gives each step:
-    each call of CALLS trains on the next rows of the draw, one epoch."""
-    batch, out, start = cell.traffic["batch"], [], 0
-    shuffle = cell.config["trainer"]["shuffle"]
-    for done, steps in enumerate(CALLS):
-        order = trainer_order(seed, done, steps * batch, shuffle, device)
-        rows = (order + start).cpu().numpy()
-        for s in range(steps):
-            idx = rows[s * batch:(s + 1) * batch]
-            out.append({k: torch.from_numpy(v[idx]).to(device)
-                        for k, v in prep.arrays.items()})
-        start += steps * batch
-    return out
 
 
 def per_call(losses: list) -> list:
@@ -119,16 +77,16 @@ def per_call(losses: list) -> list:
     return out
 
 
-def reference_first(cell: Cell, prep: Prepared, seed: int,
-                    device: torch.device, **kw) -> reference.Readings:
+def reference_first(cell: Cell, prep: Inputs, seed: int,
+                    device: torch.device, **kw) -> Readings:
     """The reference's first steps from the same inputs, drawn again, with
     its losses one a set-up call."""
-    m, t = cell.config["model"], cell.traffic["t"]
-    dense0 = weights.draw_dense(m, t, seed, device)
-    table0 = weights.draw_table(m, t, seed, device)
-    r = reference.first_steps(
-        m, cell.config["trainer"], cell.config["table_opt"], dense0, table0,
-        warm_batches(cell, prep, seed, device), **kw)
+    fam = cell.family
+    weights = fam.initial(cell.config, cell.traffic, seed, device)
+    r = cell.reference.first_steps(
+        cell.config, weights,
+        fam.warm_batches(cell.config, cell.traffic, prep, seed, CALLS,
+                         device), **kw)
     return dataclasses.replace(r, losses=per_call(r.losses))
 
 
@@ -146,7 +104,7 @@ class TraceData:
     rate_window_s: float
     flops_per_example: float
     needed_bytes_per_example: float
-    pool_needed_bytes: float
+    kernel_bytes: dict     # bytes a step by kernel group (the family's)
     peak_flops: float
     peak_bytes: float
 
@@ -181,7 +139,7 @@ def run_cell(bench: Bench, cell: Cell, seed: int, seconds: float,
     """One run: (the result line without the module check, the window's
     epochs, every number check.py read)."""
     cuda = device.type == "cuda"
-    law, m = cell.traffic, cell.config["model"]
+    law, fam = cell.traffic, cell.family
     prep = prepare(cell, seed, device)
     print(f"draw: distinct ids a batch {prep.unique_share:.4f}, compact_cap "
           f"{prep.cap}", file=sys.stderr)
@@ -189,7 +147,7 @@ def run_cell(bench: Bench, cell: Cell, seed: int, seconds: float,
                                                       device)
     _free(device)
     epochs = max(2, round(seconds / cell.epoch_s))
-    batches = -(-prep.arrays["item_ids"].shape[0] // law["batch"])
+    batches = -(-prep.rows // law["batch"])
     steps = epochs * batches
     per_step = {k: v / CALLS[-1] for k, v in counted.items()}
 
@@ -205,7 +163,7 @@ def run_cell(bench: Bench, cell: Cell, seed: int, seconds: float,
         traced_w, prof_data = _traced_window(window, t_start)
         windows.append(traced_w)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    examples = epochs * prep.arrays["item_ids"].shape[0]
+    examples = epochs * prep.rows
     del state, prog
     _free(device)
 
@@ -232,11 +190,10 @@ def run_cell(bench: Bench, cell: Cell, seed: int, seconds: float,
             profile=prof_data, classes=trace.load_classes(),
             launches=windows[-1].launches, steps=steps, examples=examples,
             window_s=windows[-1].seconds, rate_window_s=windows[0].seconds,
-            flops_per_example=counts.flops_per_example(m, law["t"]),
-            needed_bytes_per_example=counts.needed_bytes_per_example(
-                m, law["t"], law["batch"], prep.unique_share),
-            pool_needed_bytes=counts.pool_needed_bytes(m, law["t"],
-                                                       law["batch"]),
+            flops_per_example=fam.flops_per_example(cell.config, law),
+            needed_bytes_per_example=fam.needed_bytes_per_example(
+                cell.config, law, prep),
+            kernel_bytes=fam.kernel_bytes(cell.config, law),
             peak_flops=flops_peak, peak_bytes=bytes_peak)
         metrics = {}
         for x in cell.per_layer:
@@ -268,20 +225,20 @@ def run_cell(bench: Bench, cell: Cell, seed: int, seconds: float,
     return line, epochs, values
 
 
-def _window(prog: Program, prep: Prepared, epochs: int, seed: int, state,
+def _window(prog, prep: Inputs, epochs: int, seed: int, state,
             batches: int, per_step: dict) -> Window:
-    """One window's call; the trainer's result is dropped at once."""
-    result, seconds, counted = prog.window(prep.arrays, epochs, seed, state)
-    curve = result.loss_curve[len(state.loss_curve):]
-    nonfinite = sum(1 for x in curve if not math.isfinite(x))
+    """One window's call."""
+    c = prog.window(prep.arrays, epochs, seed, state)
+    nonfinite = sum(1 for x in c.losses if not math.isfinite(x))
     steps = epochs * batches
+    counted = c.launches
     off = sum(abs(counted[k] - steps * per_step[k]) for k in counted)
     ran = [counted[k] / per_step[k] for k in counted if per_step[k] > 0]
-    steps_run = int(min(ran)) if ran else len(curve) * batches
-    print(f"window: {seconds:.3f} s; epochs (s): "
-          f"{[round(x, 4) for x in result.epoch_times]}", file=sys.stderr)
-    return Window(result.update_overflow_max, nonfinite, seconds,
-                  abs(len(curve) - epochs), off, steps_run, counted)
+    steps_run = int(min(ran)) if ran else len(c.losses) * batches
+    print(f"window: {c.seconds:.3f} s; epochs (s): "
+          f"{[round(x, 4) for x in c.epoch_times]}", file=sys.stderr)
+    return Window(c.overflow, nonfinite, c.seconds,
+                  abs(len(c.losses) - epochs), off, steps_run, counted)
 
 
 def _traced_window(window, t_start: float):

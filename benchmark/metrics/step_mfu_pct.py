@@ -1,6 +1,6 @@
 """The whole step's share of the card's bf16 dense peak: the run's
 examples/s, over the untraced window as train_examples_per_s takes it,
-× the frozen FLOPs an example (counts.py)."""
+× the frozen FLOPs an example (the family's `flops_per_example`)."""
 
 
 def read(t):

@@ -8,8 +8,7 @@ import time
 import pytest
 import torch
 
-from benchmark import check, harness, program
-from benchmark.control import CONTROL
+from benchmark import check, harness
 from conftest import TINY_CELL, TINY_LIMITS
 from goctr_tpu_torch.parallel import scanned
 
@@ -34,11 +33,12 @@ def test_port_agrees_with_reference(tiny_bench, seed):
 
 def test_control_fails(tiny_bench):
     cell = tiny_bench.cell(TINY_CELL)
+    _, control = cell.family.control(cell.config)
     for seed in (1, 2, 3):
         prep = harness.prepare(cell, seed, CPU)
         ref = harness.reference_first(cell, prep, seed, CPU)
         fp8 = harness.reference_first(cell, prep, seed, CPU,
-                                      precision=CONTROL)
+                                      precision=control)
         ok, checks = check.judge(check.numbers(fp8, ref), TINY_LIMITS)
         assert not ok, checks
 
@@ -87,7 +87,8 @@ def test_window_that_skips_steps_fails(tiny_bench, monkeypatch, skips):
         ran[0] += 1
         return REAL_STEP(*args, **kw)
 
-    real_window = program.Program.window
+    family = tiny_bench.cell(TINY_CELL).family
+    real_window = family.Program.window
 
     def window(self, *args, **kw):
         in_window[0] = True
@@ -97,8 +98,8 @@ def test_window_that_skips_steps_fails(tiny_bench, monkeypatch, skips):
             in_window[0] = False
 
     monkeypatch.setattr(scanned, "train_step", step)
-    monkeypatch.setattr(program.Program, "window", window)
-    monkeypatch.setattr(program, "launches", lambda: {"train_step": ran[0]})
+    monkeypatch.setattr(family.Program, "window", window)
+    monkeypatch.setattr(family, "launches", lambda: {"train_step": ran[0]})
     line = run(tiny_bench)
     assert line["correct"] is not skips, line["checks"]
     assert (line["checks"]["launches_off"]["value"] > 0) is skips

@@ -21,6 +21,8 @@ def test_every_cell_loads_by_name(cell):
     b = registry.Bench(ROOT)
     c = b.cell(cell)
     assert c.chips == 1
+    assert c.config["family"] == "sparse_din"
+    assert Path(c.family.__file__) == BENCH / "families" / "sparse_din.py"
     assert {"model", "trainer", "table_opt"} <= set(c.config)
     assert {"rows", "batch", "t", "ids"} <= set(c.traffic)
     assert set(c.limits) == {"loss_gap", "grad_gap", "change_median_gap",
@@ -66,15 +68,15 @@ def test_new_cell_and_metric_are_files(bench_copy):
                                 b.cell(SPEC["workloads"][0]["name"]).per_layer]
 
 
-def _imports(path: Path) -> set:
+def _imports(path: Path, whole: bool = False) -> set:
     tree = ast.parse(path.read_text())
     out = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            out |= {a.name.split(".")[0] for a in node.names}
+            out |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            out.add(node.module.split(".")[0])
-    return out
+            out.add(node.module)
+    return out if whole else {m.split(".")[0] for m in out}
 
 
 @pytest.mark.parametrize("path", sorted(BENCH.rglob("*.py")),
@@ -84,11 +86,21 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 
 def test_reference_imports_nothing_of_the_port():
-    for name in ("reference.py", "weights.py", "counts.py", "traffic.py"):
-        mods = _imports(BENCH / name)
-        assert "goctr_tpu_torch" not in mods, name
-        assert mods <= {"__future__", "dataclasses", "math", "typing",
-                        "numpy", "torch", "benchmark"}, (name, mods)
-    # what reference.py takes from the benchmark is itself port-free
-    assert _imports(BENCH / "reference.py") <= {
-        "__future__", "dataclasses", "typing", "torch"}
+    """Each configuration's reference takes from the benchmark only the
+    family interface's types, which are themselves port-free."""
+    for c in SPEC["configs"]:
+        ref = ROOT / json.loads((ROOT / c["file"]).read_text())["reference"]
+        assert _imports(ref, whole=True) <= {
+            "__future__", "dataclasses", "typing", "math", "numpy", "torch",
+            "benchmark.families"}, ref
+    assert _imports(BENCH / "families" / "__init__.py") <= {
+        "__future__", "dataclasses", "torch"}
+
+
+@pytest.mark.parametrize("name", ["harness.py", "check.py", "counts.py",
+                                  "trace.py", "registry.py", "control.py",
+                                  "run.py", "families/__init__.py"])
+def test_generic_modules_import_nothing_of_the_port(name):
+    """What every family shares drives the program only through the
+    family's module."""
+    assert "goctr_tpu_torch" not in _imports(BENCH / name), name

@@ -1,10 +1,10 @@
-"""The benchmark's traffic generator keeps the law of the JAX bench's draw
-(goctr_tpu_torch/bench.py make_workload) on the same sizes."""
+"""The sparse_din family's traffic generator keeps the law of the JAX
+bench's draw (goctr_tpu_torch/bench.py make_workload) on the same sizes."""
 import numpy as np
 import pytest
 import torch
 
-from benchmark import traffic
+from benchmark.families import sparse_din
 from goctr_tpu_torch import bench as port_bench
 
 N, VOCAB, T, U, C, BATCH = 16384, 1_000_000, 32, 8, 4, 4096
@@ -30,8 +30,8 @@ def numpy_stats(zipf: bool, seed: int):
 
 
 def torch_stats(ids: str, seed: int):
-    d = traffic.draw(law(ids), VOCAB, U, C, seed, "cpu")
-    share = traffic.unique_share(d, BATCH, batches=1)
+    d = sparse_din.draw_log(law(ids), VOCAB, U, C, seed, "cpu")
+    share = sparse_din.unique_share(d, BATCH, batches=1)
     taste = ((d.behavior_ids % 2) == d.taste[:, None]).float().mean()
     return share, float(d.labels.mean()), float(taste)
 
@@ -48,9 +48,9 @@ def test_draw_law_matches_bench(ids):
 
 
 def test_same_seed_same_rows_and_large_seeds():
-    a = traffic.draw(law("zipf"), VOCAB, U, C, 2**31 + 5, "cpu")
-    b = traffic.draw(law("zipf"), VOCAB, U, C, 2**31 + 5, "cpu")
-    c = traffic.draw(law("zipf"), VOCAB, U, C, 2**31 + 6, "cpu")
+    a = sparse_din.draw_log(law("zipf"), VOCAB, U, C, 2**31 + 5, "cpu")
+    b = sparse_din.draw_log(law("zipf"), VOCAB, U, C, 2**31 + 5, "cpu")
+    c = sparse_din.draw_log(law("zipf"), VOCAB, U, C, 2**31 + 6, "cpu")
     assert torch.equal(a.behavior_ids, b.behavior_ids)
     assert torch.equal(a.labels, b.labels)
     assert not torch.equal(a.behavior_ids, c.behavior_ids)
@@ -59,9 +59,9 @@ def test_same_seed_same_rows_and_large_seeds():
 
 
 def test_compact_cap_is_the_bench_rule():
-    d = traffic.draw(law("zipf"), VOCAB, U, C, 3, "cpu")
+    d = sparse_din.draw_log(law("zipf"), VOCAB, U, C, 3, "cpu")
     host = d.host()
     from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 
-    assert traffic.compact_cap(d, BATCH) == port_bench.bench_compact_cap(
+    assert sparse_din.compact_cap(d, BATCH) == port_bench.bench_compact_cap(
         SparseSample(**host), BATCH)
