@@ -874,6 +874,7 @@ def first_step(torch, start, sample, cfg, topt, dev):
     from goctr_tpu_torch.ops.kernels.din_attention import din_attention_pool
     from goctr_tpu_torch.ops.kernels.row_optimizer import (
         group_size, pack_grads, pack_table, updated_lines)
+    from goctr_tpu_torch.ops.losses import bce_loss
     from goctr_tpu_torch.parallel import scanned as sc
 
     V, D = start.model.item_vocab, start.model.emb_dim
@@ -897,17 +898,18 @@ def first_step(torch, start, sample, cfg, topt, dev):
     table = (start.table.clone() if start.packed_group > 1
              else pack_table(start.table, torch.zeros(V, device=dev)))
     T = bids.shape[1]
+    rows = {"user_profile": prof, "behavior_ids": bids, "item_ids": iids,
+            "ctx": ctx, "labels": y, "weights": w}
     with torch.enable_grad():
-        emb = sc.gather_batch_rows(model, table, bids, iids, False,
-                                   G).requires_grad_()
+        emb = model.lookup_rows(table, rows, False, G).requires_grad_()
         beh = emb.detach()[:bs * T].view(bs, T, D)
         item = emb.detach()[bs * T:]
         mask = (bids >= 0).float()
         att0 = model.att0.detach()
         pooled = din_attention_pool(beh, item, att0, mask).requires_grad_()
         logits = model._tower(prof, pooled, item, ctx, train=True)
-        dout = torch.autograd.grad(sc.bce_loss(logits, y, w), pooled)[0]
-        loss = sc.batch_loss(model, emb, prof, bids, ctx, y, w)
+        dout = torch.autograd.grad(bce_loss(logits, y, w), pooled)[0]
+        loss = model.batch_loss(emb, rows)
         g_emb = torch.autograd.grad(loss, emb)[0]
     ids_flat = torch.cat([bids.reshape(-1), iids])
     s_ids, g_s = sc.sort_updates(ids_flat, g_emb.float(), V)
@@ -4685,6 +4687,183 @@ def rmw_share_lines(headline, mesh):
             for label, t in [("scanned trainer", head), *mesh[key]]))
 
 
+# ----------------------------------------------------------- phase 15a --
+# DLRM-DCNv2 (parallel/dlrm.py) at MLPerf's widths and bags, each table cut
+# to at most DLRM_ROWS rows: the 1-of-8 share that the benchmark's
+# configuration dlrm_dcnv2_criteo1tb_1of8 trains (V 29,184,588), its ids
+# drawn by the cell's law (bounded zipf DLRM_ZIPF_S over each feature's
+# rows, the ranks hashed across them by DLRM_PRIME), DLRM_STEPS steps of
+# TRAIN_BATCH at the configuration's learning rates
+DLRM_ROWS = 5_000_000
+DLRM_STEPS = 4
+DLRM_ZIPF_S = 1.05
+DLRM_PRIME = 2_654_435_761
+DLRM_LR = 0.002
+DLRM_TABLE_LR = 0.005
+
+
+def dlrm_kwargs():
+    from goctr_tpu_torch.parallel.dlrm import MLPERF_ROWS
+
+    return {"rows": tuple(min(r, DLRM_ROWS) for r in MLPERF_ROWS),
+            "init_rows": MLPERF_ROWS}
+
+
+def dlrm_sample(model, n, seed):
+    """n rows of a DLRMSample: feature f's ids bounded-zipf ranks over its
+    rows, rank r at row r · DLRM_PRIME mod rows; dense features log(1 + c)
+    of lognormal counts; labels 1 for about 0.3 of the rows."""
+    from goctr_tpu_torch.parallel.dlrm import DLRMSample
+
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([
+        (_zipf_ranks(rng, (n, h), r, DLRM_ZIPF_S) * DLRM_PRIME % r)
+        .astype(np.int32) for h, r in zip(model.hotness, model.rows)], 1)
+    counts = np.floor(np.exp(rng.normal(1.0, 1.5, (n, model.dense_dim))))
+    return DLRMSample(np.log1p(counts).astype(np.float32), ids,
+                      (rng.random(n) < 0.3).astype(np.float32))
+
+
+def dlrm_phase(torch, dev):
+    """Phase 15a: DLRM-DCNv2's main path and the two kernels it brought.
+    The main path: `train_sparse_scanned` over DLRM_STEPS batches, fused
+    at D = 128 (K3's bags, the "xla" compaction, the split update's K1
+    read and K4 write), launch counts reset just before and read just
+    after: one launch of each a step and no other kernel. Then, on the
+    trained table and the first batch's ids: K3 with column offsets
+    against its plain version (a control: the offsets shifted by one
+    column), timed beside embedding_bag over the same bags; the "xla"
+    compaction's unpacked [capr, 128] run sums of a step's bf16 stream
+    against its plain version (a control: two runs swapped), timed.
+    Returns the two `kernels` line entries, their launches the main
+    path's."""
+    from goctr_tpu_torch.models.trainer import TrainerConfig
+    from goctr_tpu_torch.ops.kernels import compact_xla as kx
+    from goctr_tpu_torch.ops.kernels import embedding_lookup as k3
+    from goctr_tpu_torch.parallel.dlrm import DLRMDCNv2
+    from goctr_tpu_torch.parallel.scanned import (
+        TableOptConfig, train_sparse_scanned)
+
+    t0 = time.perf_counter()
+    model = DLRMDCNv2(**dlrm_kwargs(), compute_dtype=torch.bfloat16,
+                      device=dev)
+    b, k, d = TRAIN_BATCH, model.ids_per_example, model.emb_dim
+    v, f = model.item_vocab, model.n_features
+    sample = dlrm_sample(model, DLRM_STEPS * b, SEED + 15)
+    gids = torch.from_numpy(sample.ids[:b]).to(dev) + model.col_base
+    flat = gids.reshape(-1).long()
+    distinct = torch.unique(flat).numel()
+    capr = -(-int(distinct * 1.15) // 1024) * 1024
+    cfg = TrainerConfig(batch_size=b, epochs=1, seed=SEED, solver="adagrad",
+                        lr=DLRM_LR, l2=0.0, early_stop=0, shuffle=False)
+    topt = TableOptConfig(kind="adagrad", lr=DLRM_TABLE_LR,
+                          update_mode="fused", rmw_impl="split",
+                          compact_impl="xla", compact_cap=capr)
+
+    # the main path: counts reset just before, read just after
+    path = ("fused_gather_pool", "compact_xla_rows", "gather_rows",
+            "scatter_rows_packed")
+    counted = counted_kernels()
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    result = train_sparse_scanned(model, sample, cfg, topt, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches = {name: fn.launches for name, fn in counted.items()
+                if fn.launches or name in path}
+    require(all(launches.get(name) == DLRM_STEPS for name in path)
+            and set(launches) == set(path),
+            f"[dlrm] main path launches {launches}: one of each of "
+            f"{path} a step wanted, {DLRM_STEPS} steps")
+    losses = result.loss_curve
+    require(len(losses) == 1 and np.isfinite(losses).all()
+            and result.update_overflow_max == 0
+            and tuple(result.table.shape) == (v, d),
+            f"[dlrm] loss {losses}, overflow {result.update_overflow_max}, "
+            f"table {tuple(result.table.shape)}")
+    log(f"[dlrm] train_sparse_scanned V={v} (tables <= {DLRM_ROWS} rows) "
+        f"D={d}, {DLRM_STEPS} steps of {b} (fused split, xla compaction, "
+        f"capr {capr}): loss {losses[0]:.6f}, {train_s:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+        f"{launches}")
+    table = result.table
+    del result
+
+    off = model.col_offsets
+    got = k3.fused_gather_pool(table, gids, "sum", off)
+    want = k3.fused_gather_pool_plain(table, gids, "sum", off)
+    k3_err = max_err(torch, got, want, "float32", "K3 DLRM bags")
+    shifted = off.clone()
+    shifted[1:-1] += 1
+    bad, _ = within(torch, k3.fused_gather_pool(table, gids, "sum", shifted),
+                    want, TOL["float32"][1], TOL["float32"][0])
+    require(bad > 0, "K3 DLRM bags: shifted offsets pass the tolerance")
+    del got, want
+    bag_starts = torch.arange(b, device=dev)[:, None] * k + off[:-1]
+    k3_bytes = distinct * d * 4 + flat.numel() * 4 + b * f * d * 4
+    k3_ms = device_ms(torch, lambda i: k3.fused_gather_pool(
+        table, gids, "sum", off), 1)
+    k3_plain_ms = device_ms(torch, lambda i: k3.fused_gather_pool_plain(
+        table, gids, "sum", off), 1, iters=3)
+    k3_lib_ms = device_ms(torch, lambda i: torch.nn.functional.embedding_bag(
+        flat, table, bag_starts.reshape(-1), mode="sum"), 1)
+    k3_bound_ms, k3_by = bound(k3_bytes, flat.numel() * d)
+    log(f"[dlrm] K3 B={b} F={f} K={k} D={d} V={v} ({distinct} distinct "
+        f"rows, {distinct / flat.numel():.4f} of the ids): max_abs_err "
+        f"{k3_err:.3g}; device ms kernel {k3_ms:.5f}, plain "
+        f"{k3_plain_ms:.5f}, embedding_bag {k3_lib_ms:.5f}, bound "
+        f"{k3_bound_ms:.5f} ({k3_bytes} B, {k3_by})")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn(flat.numel(), d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ids_flat = gids.reshape(-1)
+    s_ids, order = kx.sort_ids(ids_flat, v)
+    tgt, rows, over = kx.compact_xla_rows(ids_flat, s_ids, order, g, v,
+                                          capr, False)
+    w_tgt, w_rows, w_over = kx.compact_xla_rows_plain(
+        ids_flat, s_ids, order, g, v, capr, False)
+    require(torch.equal(tgt, w_tgt) and int(over) == int(w_over) == 0,
+            "compact_xla D=128: targets or overflow differ")
+    bits = lambda x: x.contiguous().view(torch.int32)
+    require(torch.equal(bits(rows), bits(w_rows)),
+            "compact_xla D=128: run sums differ from the plain version")
+    moved = rows.clone()
+    moved[[0, 1]] = moved[[1, 0]]
+    require(not torch.equal(bits(moved), bits(w_rows)),
+            "compact_xla D=128: a moved run passes")
+    del w_rows, moved
+    n_real = int((tgt < v).sum())
+    cx_bytes = g.numel() * 2 + ids_flat.numel() * 16 + capr * (d * 4 + 4)
+    cx_ms = device_ms(torch, lambda i: kx.compact_xla_rows(
+        ids_flat, s_ids, order, g, v, capr, False), 1)
+    cx_plain_ms = device_ms(torch, lambda i: kx.compact_xla_rows_plain(
+        ids_flat, s_ids, order, g, v, capr, False), 1, iters=3)
+    cx_bound_ms, cx_by = bound(cx_bytes, g.numel())
+    log(f"[dlrm] compact_xla D=128 unpacked, bf16 rows n={ids_flat.numel()}"
+        f", capr {capr}, {n_real} runs: bit for bit vs plain; device ms "
+        f"kernel {cx_ms:.5f}, plain {cx_plain_ms:.5f}, bound "
+        f"{cx_bound_ms:.5f} ({cx_bytes} B); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    del table, g, rows, tgt
+    torch.cuda.empty_cache()
+    return [{"name": "gather_pool (DLRM bags, column offsets)",
+             "route": "cuda", "source": "goctr_tpu_torch/csrc/gather_pool.cu",
+             "replaces": "goctr_tpu/ops/pallas/embedding_lookup.py:106",
+             "launches": launches["fused_gather_pool"],
+             "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+             "bound_ms": k3_bound_ms, "bound_by": k3_by,
+             "library_ms": k3_lib_ms},
+            {"name": "compact_xla (D = 128 unpacked)", "route": "cuda",
+             "source": "goctr_tpu_torch/csrc/compact_xla.cu",
+             "replaces": "goctr_tpu/parallel/scanned.py:296-311",
+             "launches": launches["compact_xla_rows"], "max_abs_err": 0.0,
+             "ms": cx_ms, "plain_ms": cx_plain_ms, "bound_ms": cx_bound_ms,
+             "bound_by": cx_by, "library_ms": None}]
+
+
 # ------------------------------------------------------------ phase 15 --
 def sync_phase(torch, dev):
     """Phase 15: one step of each training path that promises not to make
@@ -4692,7 +4871,8 @@ def sync_phase(torch, dev):
     the scanned trainer in every update mode and its kernel variants, the
     1×1 mesh's sparse step in fused (K5), dedup, sorted and plain, its
     dense step (K3), the dense rankers' steps (MLPTower, YoutubeDNN, DIN
-    "xla" and "pallas": K2, K2b) and the capped lookup's _dedup_flat) at
+    "xla" and "pallas": K2, K2b), the capped lookup's _dedup_flat and
+    DLRM-DCNv2's scanned step (K3 bags, D = 128 fused split) at
     the headline widths (the grouped cases at GROUPED's, the rankers at
     ML20M's) and batch, each called once to build and warm up and once
     under torch.cuda.set_sync_debug_mode("error"), where any wait raises;
@@ -4703,7 +4883,7 @@ def sync_phase(torch, dev):
     t0 = time.perf_counter()
     passed = []
     for name, build in step_cases(dev, HEADLINE, GROUPED, ML20M,
-                                  TRAIN_BATCH):
+                                  TRAIN_BATCH, dlrm=dlrm_kwargs()):
         step = build()
         step()
         torch.cuda.synchronize()
@@ -5197,6 +5377,9 @@ def main() -> int:
     rmw_share_lines({"K5": t6["K5"], "K6": t7["K6"]}, mesh_rmw)
     torch.cuda.empty_cache()
 
+    # 15a. DLRM-DCNv2's kernels: K3's bags, the D = 128 compaction ---------
+    dlrm_entries = dlrm_phase(torch, dev)
+
     # 15. the steps that promise not to wait, under the sync debug mode ----
     sync_phase(torch, dev)
 
@@ -5278,7 +5461,7 @@ def main() -> int:
          "ms": din_ms, "plain_ms": din_plain_ms, "bound_ms": din_bound_ms,
          "bound_by": din_bound_by, "library_ms": None},
     ] + train_entries + [k3_entry] + dense_entries + pipeline_entries
-        + ml20m_entries + mesh_entries}
+        + ml20m_entries + mesh_entries + dlrm_entries}
     served = pipe["bench_serving"]
     log(f"[done] scores/s plain {rate_plain:.1f}, packed {rate_packed:.1f}, "
         f"grouped {rate_grouped:.1f}; grouped launches {g_launches}; "

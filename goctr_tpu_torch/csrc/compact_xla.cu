@@ -20,7 +20,9 @@
 //   tgt  [capr] int32: the real runs' ids (id < vocab) in id order, then
 //        junk targets vocab + 1 + k for the slots k past them;
 //   rows [capr, 128] f32 (packed: Σg | ‖Σg‖² | 0, the row update's input
-//        at G = 1) or [capr, D] f32 (Σg, the grouped lines' input);
+//        at G = 1, D <= 127) or [capr, D] f32 (Σg: the grouped lines'
+//        input, and at D = 128 the split row update's, weights and
+//        accumulator kept apart);
 //   overflow [1] int32: max(#real runs − capr, 0).
 //
 // The arithmetic is the glue's, add for add. The sorted stream is cut
@@ -90,7 +92,7 @@ constexpr int kChunk = 32;        // rows a warp loads at once
 constexpr int kChunks = kBlockRows / kChunk;
 constexpr int kWarps = 4;         // warps a block of the row passes
 constexpr int kLanes = 128;       // floats of a packed row
-constexpr int kMaxDim = 127;
+constexpr int kMaxPackedDim = 127;  // a packed row keeps a lane for ‖Σg‖²
 constexpr int kCountWarps = 8;       // warps a block of the end counts
 constexpr int kSlotThreads = 1024;   // the end slots' one block
 constexpr int kChainCols = 4;        // columns a block of the offsets
@@ -618,7 +620,7 @@ extern "C" int compact_xla(const void* ids, const void* s_ids,
                            long long n, int dim, int bf16, int vocab,
                            long long capr, int packed, void* tgt, void* rows,
                            void* overflow, void* scratch, void* stream) {
-  if (dim < 1 || dim > kMaxDim || n < kBlockRows || n % kBlockRows != 0 ||
+  if (dim < 1 || dim > (packed ? kMaxPackedDim : kLanes) || n < kBlockRows || n % kBlockRows != 0 ||
       n >= (1ll << 31) || n0 < 1 || n0 > n || capr < 1 || capr > n)
     return cudaErrorInvalidValue;
   Args a;

@@ -9,7 +9,15 @@
 //   out[b] = sum_k [ids[b,k] >= 0] * table[ids[b,k]]        (sum)
 //   out[b] = that / max(#{k : ids[b,k] >= 0}, 1)            (mean)
 //
-// table [V, D] f32, ids [B, K] int32 (-1 = pad), out [B, D] f32. Pads add
+// or, with F bags a row at column offsets off[0] = 0 <= ... <= off[F] = K
+// (DLRM's multi-hot features), out[b, f] the same over k in
+// [off[f], off[f+1]): each (b, f) is a bag of its own, pooled by the same
+// code as a batch row (bag r = b * F + f reads ids[b, off[f]:off[f+1]] and
+// writes out row r), so F = 1 with no offsets is the one-bag pool, add for
+// add.
+//
+// table [V, D] f32, ids [B, K] int32 (-1 = pad), out [B, D] or [B, F, D]
+// f32. Pads add
 // nothing and a fully padded row gives 0; an id >= V is never read and adds
 // a NaN row (what `jnp.take` returns for it, and what K1 returns), but it
 // counts as valid, as in the JAX function. The TPU kernel's three gates
@@ -118,23 +126,53 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   return m;
 }
 
+// A bag's ids: they start at ids + start and are len long (bag r of F a
+// batch row at column offsets off, or with off null row r's K ids).
+__device__ __forceinline__ void bag(const int* __restrict__ off, int n_feat,
+                                    int k, long long r, long long& start,
+                                    int& len) {
+  if (off == nullptr) {
+    start = r * k;
+    len = k;
+  } else {
+    const int f = static_cast<int>(r % n_feat);
+    const int o0 = __ldg(off + f);
+    start = (r / n_feat) * k + o0;
+    len = __ldg(off + f + 1) - o0;
+  }
+}
+
 // VEC floats a load, CH loads a lane per table row (lpr lanes cover a
 // chunk of cw = CH * lpr * VEC columns; the chunks cover D), MEAN divides
-// by the valid count; rpw batch rows a warp (kRowsPerWarp, halved until
-// rpw * lpr <= 32), each on 32 / rpw lanes.
+// by the valid count; rpw bags a warp (kRowsPerWarp, halved until
+// rpw * lpr <= 32), each on 32 / rpw lanes. A bag is a batch row, or one
+// of its F bags at column offsets `off` (n_feat = F).
 template <int VEC, int CH, bool MEAN>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_pool_kernel(const float* __restrict__ table,
                    const int* __restrict__ ids, float* __restrict__ out,
-                   long long batch, int k, long long n_rows, int dim,
-                   int lpr, int cw, int rpw) {
+                   long long bags, int k, long long n_rows, int dim,
+                   int lpr, int cw, int rpw, const int* __restrict__ off,
+                   int n_feat) {
   __shared__ int lists[kWarpsPerBlock][kRowsPerWarp][kWindow];
   const int warp = threadIdx.x / 32;
   const long long row0 =
       (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp) * rpw;
-  if (row0 >= batch) return;  // the whole warp: its rows start at row0
+  if (row0 >= bags) return;  // the whole warp: its rows start at row0
+  // each of the warp's bags' ids, the same on every lane, and the longest
+  long long starts[kRowsPerWarp];
+  int lens[kRowsPerWarp];
+  int kmax = 0;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    starts[r] = 0;
+    lens[r] = 0;
+    if (r < rpw && row0 + r < bags)
+      bag(off, n_feat, k, row0 + r, starts[r], lens[r]);
+    kmax = max(kmax, lens[r]);
+  }
   const int lane = threadIdx.x & 31;
-  const int glanes = 32 / rpw;         // lanes of one batch row
+  const int glanes = 32 / rpw;         // lanes of one bag
   const int grp = lane / glanes;       // which of the warp's rows
   const int slot = (lane % glanes) / lpr;
   const int col = lane % lpr;
@@ -150,8 +188,7 @@ gather_pool_kernel(const float* __restrict__ table,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[c][e] = 0.f;
     int count = 0;  // valid ids of this lane's row (ids >= V included)
-    for (int w0 = 0; w0 < k; w0 += kWindow) {
-      const int wn = min(kWindow, k - w0);
+    for (int w0 = 0; w0 < kmax; w0 += kWindow) {
       // the window's ids of each of the warp's rows, read before any
       // ballot so that the loads overlap
       int my[kRowsPerWarp][kWindow / 32];
@@ -160,10 +197,10 @@ gather_pool_kernel(const float* __restrict__ table,
 #pragma unroll
         for (int q = 0; q < kWindow / 32; ++q) {
           const int j = q * 32 + lane;
-          const bool in = r < rpw && row0 + r < batch && j < wn;
-          my[r][q] = in ? __ldg(ids + (row0 + r) * k + w0 + j) : -1;
+          const bool in = j < min(kWindow, lens[r] - w0);
+          my[r][q] = in ? __ldg(ids + starts[r] + w0 + j) : -1;
         }
-      const int nq = (wn + 31) / 32;  // the same on every lane
+      const int nq = (min(kWindow, kmax - w0) + 31) / 32;  // on every lane
       int n_real = 0;  // list entries of this lane's row
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -217,7 +254,7 @@ gather_pool_kernel(const float* __restrict__ table,
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
           acc[c][e] += __shfl_xor_sync(kFull, acc[c][e], off);
-    if (slot == 0 && row < batch) {
+    if (slot == 0 && row < bags) {
       const float denom = fmaxf(static_cast<float>(count), 1.f);
       float* dst = out + row * dim;
 #pragma unroll
@@ -241,7 +278,7 @@ bool aligned(const void* p, uintptr_t bytes) {
 template <int VEC, int CH>
 void launch_vc(const float* t, const int* i, float* o, long long batch,
                int k, long long n_rows, int dim, int lpr, bool mean,
-               cudaStream_t s) {
+               const int* off, int nf, cudaStream_t s) {
   const int cw = CH * lpr * VEC;
   int rpw = kRowsPerWarp;  // a power of two
   while (rpw * lpr > 32) rpw >>= 1;
@@ -250,10 +287,10 @@ void launch_vc(const float* t, const int* i, float* o, long long batch,
   const dim3 grid(static_cast<unsigned>((batch + per_block - 1) / per_block));
   if (mean) {
     gather_pool_kernel<VEC, CH, true><<<grid, block, 0, s>>>(
-        t, i, o, batch, k, n_rows, dim, lpr, cw, rpw);
+        t, i, o, batch, k, n_rows, dim, lpr, cw, rpw, off, nf);
   } else {
     gather_pool_kernel<VEC, CH, false><<<grid, block, 0, s>>>(
-        t, i, o, batch, k, n_rows, dim, lpr, cw, rpw);
+        t, i, o, batch, k, n_rows, dim, lpr, cw, rpw, off, nf);
   }
 }
 
@@ -262,50 +299,57 @@ void launch_vc(const float* t, const int* i, float* o, long long batch,
 template <int VEC, int CH = 1>
 void launch_ch(int ch, const float* t, const int* i, float* o,
                long long batch, int k, long long n_rows, int dim, int lpr,
-               bool mean, cudaStream_t s) {
+               bool mean, const int* off, int nf, cudaStream_t s) {
   if constexpr (CH * VEC <= kLaneFloats) {
     if (ch == CH) {
-      launch_vc<VEC, CH>(t, i, o, batch, k, n_rows, dim, lpr, mean, s);
+      launch_vc<VEC, CH>(t, i, o, batch, k, n_rows, dim, lpr, mean, off, nf,
+                         s);
     } else {
       launch_ch<VEC, CH * 2>(ch, t, i, o, batch, k, n_rows, dim, lpr, mean,
-                             s);
+                             off, nf, s);
     }
   }
 }
 
 template <int VEC>
 void launch_v(const float* t, const int* i, float* o, long long batch,
-              int k, long long n_rows, int dim, bool mean, cudaStream_t s) {
+              int k, long long n_rows, int dim, bool mean, const int* off,
+              int nf, cudaStream_t s) {
   const int nvec = dim / VEC;
   int lpr = 1;
   while (lpr < nvec && lpr < kLanesPerRow) lpr <<= 1;
   // loads a lane per row a column chunk; wider rows take more chunks
   int ch = 1;
   while (ch * lpr < nvec && 2 * ch * VEC <= kLaneFloats) ch <<= 1;
-  launch_ch<VEC>(ch, t, i, o, batch, k, n_rows, dim, lpr, mean, s);
+  launch_ch<VEC>(ch, t, i, o, batch, k, n_rows, dim, lpr, mean, off, nf, s);
 }
 
 }  // namespace
 
-// table [n_rows, dim] f32, ids [batch, k] int32, out [batch, dim] f32;
-// mean != 0 divides by the valid count. Returns cudaGetLastError().
+// table [n_rows, dim] f32, ids [batch, k] int32, out [batch, n_feat, dim]
+// f32; off null (n_feat 1: one bag a row) or [n_feat + 1] int32 column
+// offsets on the device, 0 = off[0] <= ... <= off[n_feat] = k; mean != 0
+// divides by the valid count. Returns cudaGetLastError().
 extern "C" int gather_pool_f32(const void* table, const void* ids, void* out,
                                long long batch, int k, long long n_rows,
-                               int dim, int mean, void* stream) {
-  if (dim < 1 || k < 0) {
+                               int dim, int mean, const void* off,
+                               int n_feat, void* stream) {
+  if (dim < 1 || k < 0 || n_feat < 1 || (off == nullptr && n_feat != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0) return 0;
   const auto* t = static_cast<const float*>(table);
   const auto* i = static_cast<const int*>(ids);
   auto* o = static_cast<float*>(out);
+  const auto* f = static_cast<const int*>(off);
+  const long long bags = batch * n_feat;
   auto s = static_cast<cudaStream_t>(stream);
   if (dim % 4 == 0 && aligned(table, 16) && aligned(out, 16)) {
-    launch_v<4>(t, i, o, batch, k, n_rows, dim, mean != 0, s);
+    launch_v<4>(t, i, o, bags, k, n_rows, dim, mean != 0, f, n_feat, s);
   } else if (dim % 2 == 0 && aligned(table, 8) && aligned(out, 8)) {
-    launch_v<2>(t, i, o, batch, k, n_rows, dim, mean != 0, s);
+    launch_v<2>(t, i, o, bags, k, n_rows, dim, mean != 0, f, n_feat, s);
   } else {
-    launch_v<1>(t, i, o, batch, k, n_rows, dim, mean != 0, s);
+    launch_v<1>(t, i, o, bags, k, n_rows, dim, mean != 0, f, n_feat, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,10 @@ glue on the card:
                              then junk targets vocab + 1 + k;
     rows      [capr, 128] f32 (packed: Σg | ‖Σg‖² | 0 ..., the row
                              update's input at G = 1) or [capr, D] f32
-                             (Σg, `line_stream`'s input on grouped lines);
+                             (Σg: `line_stream`'s input on grouped lines,
+                             and at D = 128, where weights and
+                             accumulator are kept apart, the split row
+                             update's, which sums ‖Σg‖² itself);
     overflow  [] int32       max(#real runs − capr, 0).
 
 Every Σg lane equals the glue's; the packed ‖Σg‖² lane is summed in f64
@@ -92,7 +95,7 @@ def compact_rank_sort(s_ids: torch.Tensor, g_s: torch.Tensor, vocab: int,
     return tgt.to(torch.int32), rows, overflow
 
 
-def _check(ids_flat, s_ids, order, g_flat, vocab, capr) -> None:
+def _check(ids_flat, s_ids, order, g_flat, vocab, capr, packed) -> None:
     if ids_flat.dim() != 1 or ids_flat.dtype != torch.int32:
         raise ValueError(f"ids_flat must be [n0] int32, got "
                          f"{tuple(ids_flat.shape)} {ids_flat.dtype}")
@@ -107,8 +110,10 @@ def _check(ids_flat, s_ids, order, g_flat, vocab, capr) -> None:
             or g_flat.dtype not in DTYPES:
         raise ValueError(f"g_flat must be [{n0}, D] bfloat16 or float32, "
                          f"got {tuple(g_flat.shape)} {g_flat.dtype}")
-    if not 1 <= g_flat.shape[1] < LANES:
-        raise ValueError(f"D = {g_flat.shape[1]} must be in [1, {LANES})")
+    top = LANES - 1 if packed else LANES    # a packed row holds ‖Σg‖² too
+    if not 1 <= g_flat.shape[1] <= top:
+        raise ValueError(f"D = {g_flat.shape[1]} must be in [1, {top}]"
+                         + (" packed" if packed else ""))
     if len({t.device for t in (ids_flat, s_ids, order, g_flat)}) != 1:
         raise ValueError("ids_flat, s_ids, order and g_flat must be on one "
                          "device")
@@ -152,7 +157,7 @@ def compact_xla_rows(ids_flat: torch.Tensor, s_ids: torch.Tensor,
     order [n] int64) and the row gradients [n0, D] bf16 or f32 in batch
     order → (tgt [capr] int32, rows [capr, 128 if packed else D] f32,
     overflow [] int32); see the module docstring."""
-    _check(ids_flat, s_ids, order, g_flat, vocab, capr)
+    _check(ids_flat, s_ids, order, g_flat, vocab, capr, packed)
     if g_flat.device.type == "cpu":
         return compact_xla_rows_plain(ids_flat, s_ids, order, g_flat, vocab,
                                       capr, packed)

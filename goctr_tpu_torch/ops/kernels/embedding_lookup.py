@@ -14,6 +14,15 @@ table [V, D] float32 and ids [B, K] int32 (-1 = pad) give [B, D] float32:
 the semantics of `fused_gather_pool_jnp`, which JAX runs at the trainer's
 shapes: a fully padded row gives 0, and an id >= V adds a NaN row (the
 fill of `jnp.take`, and what K1 returns for it) while counting as valid.
+
+With `offsets`, a [F + 1] int32 tensor of column offsets on the ids'
+device (0 = offsets[0] <= ... <= offsets[F] = K), each row holds F bags,
+bag f in columns offsets[f] .. offsets[f+1] - 1, and the result is
+[B, F, D] float32: out[b, f] pools bag f of row b as above (DLRM's
+multi-hot features, each sum-pooled, in one launch). The kernel pools
+each bag as it pools a row, so without offsets (F = 1) its arithmetic is
+the one-bag pool's; the offsets' values are not checked on the card
+(that would wait on it).
 The TPU kernel's gates (D % 128 == 0, B % 8 == 0, K >= 8) are Mosaic
 tiling limits; the port takes any B, any K and any D.
 
@@ -21,6 +30,10 @@ tiling limits; the port takes any B, any K and any D.
 plain version for CPU tensors; on any other device, or when the kernel
 cannot be built or launched, it raises. `fused_gather_pool.launches`
 counts kernel launches.
+
+`bag_row_grads` spreads the gradient of a multi-bag sum pool back to
+each id's row, the stream a sparse row update takes (the table never
+enters autograd there).
 
 `GatherPoolMean` is the counterpart of `gather_pool_mean`: forward K3
 with "mean", backward the closed form of `_gather_pool_mean_bwd` — each
@@ -40,15 +53,17 @@ import torch
 from goctr_tpu_torch.ops.kernels import _build
 
 _NAME = "gather_pool"
-# (table, ids, out, batch, k, n_rows, dim, mean, stream)
+# (table, ids, out, batch, k, n_rows, dim, mean, offsets, n_feat, stream)
 _ARGTYPES = {"gather_pool_f32": [ctypes.c_void_p] * 3
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p]}
 COMBINERS = ("sum", "mean")
 _count_lock = threading.Lock()
 
 
-def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> None:
+def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str,
+           offsets: torch.Tensor | None = None) -> None:
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be one of {COMBINERS}, got "
                          f"{combiner!r}")
@@ -64,12 +79,23 @@ def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> None:
         raise ValueError(f"ids on {ids.device}, table on {table.device}")
     if not (table.is_contiguous() and ids.is_contiguous()):
         raise ValueError("table and ids must be contiguous")
+    if offsets is not None and (
+            offsets.dim() != 1 or offsets.shape[0] < 2
+            or offsets.dtype != torch.int32 or offsets.device != ids.device
+            or not offsets.is_contiguous()):
+        raise ValueError(f"offsets must be a contiguous [F + 1] int32 "
+                         f"tensor on {ids.device}, got "
+                         f"{tuple(offsets.shape)} {offsets.dtype} on "
+                         f"{offsets.device}")
 
 
 def fused_gather_pool_plain(table: torch.Tensor, ids: torch.Tensor,
-                            combiner: str = "sum") -> torch.Tensor:
-    """Plain PyTorch version of K3 (`fused_gather_pool_jnp`'s steps)."""
-    _check(table, ids, combiner)
+                            combiner: str = "sum",
+                            offsets: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of K3 (`fused_gather_pool_jnp`'s steps, then
+    with `offsets` one sum a bag)."""
+    _check(table, ids, combiner, offsets)
     b, k = ids.shape
     v, d = table.shape
     flat = ids.reshape(-1).long()
@@ -78,30 +104,47 @@ def fused_gather_pool_plain(table: torch.Tensor, ids: torch.Tensor,
     rows = rows.masked_fill((~in_table & (flat >= 0))[:, None],
                             float("nan"))
     valid = (ids >= 0).to(torch.float32)
-    pooled = (rows.view(b, k, d) * valid[..., None]).sum(1)
+    rows = rows.view(b, k, d) * valid[..., None]
+    if offsets is None:
+        pooled = rows.sum(1)
+        count = valid.sum(1, keepdim=True)
+    else:
+        off = offsets.tolist()
+        if off[0] != 0 or off[-1] != k or any(
+                a > c for a, c in zip(off, off[1:])):
+            raise ValueError(f"offsets {off} must rise from 0 to K = {k}")
+        pooled = torch.stack([rows[:, a:c].sum(1)
+                              for a, c in zip(off, off[1:])], 1)
+        count = torch.stack([valid[:, a:c].sum(1)
+                             for a, c in zip(off, off[1:])], 1)[..., None]
     if combiner == "mean":
-        pooled = pooled / valid.sum(1, keepdim=True).clamp_min(1.0)
+        pooled = pooled / count.clamp_min(1.0)
     return pooled
 
 
 def fused_gather_pool(table: torch.Tensor, ids: torch.Tensor,
-                      combiner: str = "sum") -> torch.Tensor:
+                      combiner: str = "sum",
+                      offsets: torch.Tensor | None = None) -> torch.Tensor:
     """Pool the rows of `table` at `ids` ([B, K] int32, -1 pads) → [B, D]
-    float32, by `combiner` ("sum" or "mean")."""
-    _check(table, ids, combiner)
+    float32, or with `offsets` ([F + 1] int32) each row's F bags →
+    [B, F, D] (module docstring), by `combiner` ("sum" or "mean")."""
+    _check(table, ids, combiner, offsets)
     if table.device.type == "cpu":
-        return fused_gather_pool_plain(table, ids, combiner)
+        return fused_gather_pool_plain(table, ids, combiner, offsets)
     if table.device.type != "cuda":
         raise ValueError(f"no gather_pool kernel for {table.device}")
     b, k = ids.shape
     v, d = table.shape
-    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    shape = (b, d) if offsets is None else (b, offsets.shape[0] - 1, d)
+    out = torch.empty(shape, dtype=torch.float32, device=table.device)
     if b == 0:
         return out
     lib = _build.load(_NAME, _ARGTYPES)
     code = lib.gather_pool_f32(
         table.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k, v, d,
         int(combiner == "mean"),
+        None if offsets is None else offsets.data_ptr(),
+        1 if offsets is None else offsets.shape[0] - 1,
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check(lib, _NAME, code)
     with _count_lock:
@@ -123,6 +166,18 @@ def table_grad(ids: torch.Tensor, rows: torch.Tensor,
     out = rows.new_zeros((n_rows + 1, d)).index_add_(0, flat,
                                                      rows.reshape(-1, d))
     return out[:n_rows]
+
+
+def bag_row_grads(g: torch.Tensor, col_feature: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The row gradients of a sum pool over F bags a row: g [B, F, D], the
+    pooled rows' gradient, → [B·K, D] in `dtype`, row b·K + k holding
+    g[b, col_feature[k]] (col_feature [K] int64, each column's bag),
+    rounded to `dtype` once (a cast of the [B, F, D] rows, then one
+    gather). This is the id stream's gradient that a sparse row update
+    takes, in the order of the [B, K] ids."""
+    d = g.shape[-1]
+    return g.to(dtype).index_select(1, col_feature).reshape(-1, d)
 
 
 def gather_pool_mean_bwd(g: torch.Tensor, ids: torch.Tensor,

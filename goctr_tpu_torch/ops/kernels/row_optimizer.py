@@ -27,7 +27,9 @@ Two ways to apply one batch's update rows, the same arithmetic in f32
   * split (rmw_impl="split"): read the targeted lines with kernel K1,
     compute in torch, write them back with kernel K4
     (`scatter_rows_packed`, csrc/row_scatter.cu) —
-    `apply_row_updates_split`, `apply_line_updates_split`;
+    `apply_row_updates_split`, `apply_line_updates_split`, and at D = 128
+    (a [V, 128] weight table, its accumulator a [V + 1] vector apart)
+    `apply_wide_row_updates_split`;
   * one pass (rmw_impl="kernel"): kernel K5 (`apply_row_updates`) on
     packed rows, kernel K6 (`apply_line_updates`) on grouped lines, both
     in csrc/row_rmw.cu: each line is read, updated and written back by
@@ -351,6 +353,44 @@ def apply_line_updates_split(table: torch.Tensor, line_ids: torch.Tensor,
     new = updated_lines(table, line_ids, line_updates, lr, d, kind, eps,
                         group_size(d))
     return scatter_rows_packed(table, line_ids, new, skip_ge=skip_ge)
+
+
+def apply_wide_row_updates_split(table: torch.Tensor, acc: torch.Tensor,
+                                 ids: torch.Tensor, g: torch.Tensor,
+                                 lr: float, kind: str = "adagrad",
+                                 eps: float = 1e-8,
+                                 skip_ge: int | None = None) -> torch.Tensor:
+    """Split row update of a [V, 128] weight table whose accumulator is
+    kept apart (D = 128 leaves no lane for it), in place: each target's
+    row read with K1, DLRM row-wise adagrad
+
+        acc' = acc + ‖Σg‖²,   w' = w − lr · Σg · rsqrt(acc' + eps)
+
+    (‖Σg‖² summed over the 128 lanes from the f32 rows, as in every row
+    update here; FBGEMM's EXACT_ROWWISE_ADAGRAD adds its mean over them)
+    or sgd in torch, the whole rows
+    written back with K4, and the accumulator read and written by index.
+    ids [n] int32 pairwise distinct below skip_ge (junk targets past it
+    are skipped); g [n, 128] f32 Σg rows; acc [skip_ge + 1] f32, its last
+    entry a spare that the junk targets' accumulator writes land on (a
+    write by index cannot skip them without waiting on the card)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown row optimizer {kind!r}")
+    if skip_ge is None:
+        skip_ge = table.shape[0]
+    if acc.shape != (skip_ge + 1,) or g.shape != (ids.shape[0], LANES):
+        raise ValueError(f"acc must be [{skip_ge + 1}] and g "
+                         f"[{ids.shape[0]}, {LANES}], got "
+                         f"{tuple(acc.shape)}, {tuple(g.shape)}")
+    cur = gather_rows(table, ids.clamp(max=table.shape[0] - 1), dim=LANES)
+    if kind == "sgd":
+        new = cur - lr * g
+    else:
+        slot = torch.where(ids < skip_ge, ids, skip_ge).long()
+        a = acc.index_select(0, slot) + (g * g).sum(1)
+        acc.index_copy_(0, slot, a)
+        new = cur - lr * g * torch.rsqrt(a + eps)[:, None]
+    return scatter_rows_packed(table, ids, new, skip_ge=skip_ge)
 
 
 def _rmw_plain(table, ids, upd, lr, d, kind, eps, skip_ge, group):

@@ -1,15 +1,23 @@
-"""Device-resident scanned trainer for SparseCTR, its result and its
-checkpoints (port of goctr_tpu/parallel/scanned.py: TrainedScanned
+"""Device-resident scanned trainer for SparseCTR and DLRMDCNv2
+(parallel/dlrm.py), its result and its checkpoints (port of
+goctr_tpu/parallel/scanned.py: TrainedScanned
 :58-123, GROUPED_RESIDENT_MIN_V :128, table_pad_rows :135-144,
 _table_update :147-380, train_sparse_scanned :383-671, checkpoints
 :674-755, the analytic per-example counts :758-827).
 
-The whole dataset lives on the device. Each step gathers the batch's rows
-with kernel K1, differentiates the loss with respect to the gathered rows
-(the table never enters autograd: no [V, D] gradient), takes one solver
-step on the dense parameters, and updates the table in place with
-row-wise adagrad (one accumulator a row) or sgd. `update_mode` picks the
-table's layout and its update, as in the JAX trainer:
+The whole dataset lives on the device. Each step looks the batch's rows
+up, differentiates the loss with respect to the looked-up rows (the table
+never enters autograd: no [V, D] gradient), takes one solver step on the
+dense parameters, and updates the table in place with row-wise adagrad
+(one accumulator a row) or sgd. What is model-specific comes from the
+model, through a few members that SparseCTR and DLRMDCNv2 both have:
+the arrays it uploads (`trainer_arrays`, by name), its ids an example
+(`ids_per_example`), its lookup (`lookup_rows`: SparseCTR's rows by K1,
+DLRM's bags pooled by K3), its loss over what was looked up
+(`batch_loss`) and the update's id stream with each id's gradient
+(`update_stream`); the loop, the spans, the solver step and the table
+update are one code for both. `update_mode` picks the table's layout and
+its update, as in the JAX trainer:
 
   mode      layout (emb_dim D)                  update of one batch
   fused     packed [V, 128] rows (w | acc | 0)  sort the ids, sum each id's
@@ -39,9 +47,13 @@ table's layout and its update, as in the JAX trainer:
                                                 batch order
 
 The three packed modes require D < 128 (weights and accumulator share a
-128-lane line); the other three take any D. fused, fused2, runfused and
-dedup apply the same row-wise adagrad to each id's summed gradient;
-sorted and plain add each occurrence's ‖g‖² to the accumulator and scale
+128-lane line), but for `fused` at D = 128: [V, 128] f32 weights and a
+[V + 1] f32 accumulator apart (516 B a row; K1 and K3 read the weights
+in place), the id sort and the "xla" compaction's unpacked [capr, 128]
+run sums, then the split update (K1 read, torch, K4 write of whole rows;
+the accumulator read and written by index). The other three take any
+D. fused, fused2, runfused and dedup apply the same row-wise adagrad to
+each id's summed gradient; sorted and plain add each occurrence's ‖g‖² to the accumulator and scale
 every occurrence by the accumulator after all of them (the JAX trainer's
 Hogwild-style per-occurrence update), different arithmetic.
 
@@ -104,20 +116,21 @@ from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
     LANES, ROWS_PER_STEP, apply_csum_updates, apply_line_updates,
     apply_line_updates_split, apply_row_updates, apply_row_updates_split,
-    group_size, pack_grads, pack_table, pack_table_grouped, packed_lines,
-    unpack_table, unpack_table_grouped, unpack_table_grouped_np,
+    apply_wide_row_updates_split, group_size, pack_grads, pack_table,
+    pack_table_grouped, packed_lines, unpack_table, unpack_table_grouped,
+    unpack_table_grouped_np,
 )
 from goctr_tpu_torch.ops.kernels.run_optimizer import apply_run_updates
 from goctr_tpu_torch.ops.scatter import scatter_add_rows
 from goctr_tpu_torch.ops.segsum import (
     _cumsum_rows, segment_rows_dedup, sorted_run_sums,
 )
-from goctr_tpu_torch.ops.losses import bce_loss
 from goctr_tpu_torch.optim.optimizers import Solver
 from goctr_tpu_torch.parallel.sparse_ctr import SparseCTR
 from goctr_tpu_torch.parallel.table_opt import TableOptConfig
 
-if TYPE_CHECKING:       # sparse_trainer imports this module
+if TYPE_CHECKING:       # sparse_trainer and dlrm import this module
+    from goctr_tpu_torch.parallel.dlrm import DLRMDCNv2, DLRMSample
     from goctr_tpu_torch.parallel.sparse_trainer import SparseSample
 
 __all__ = ["TableOptConfig", "TrainedScanned", "train_sparse_scanned",
@@ -137,7 +150,9 @@ PACKED_MODES = ("fused", "fused2", "runfused")
 
 @dataclasses.dataclass
 class TrainedScanned:
-    model: SparseCTR                    # holds the dense parameters
+    # holds the dense parameters: a SparseCTR or a DLRMDCNv2 (`rows_of`
+    # and `predict` are SparseCTR's)
+    model: SparseCTR
     # [V, D] ([V + table_pad_rows, D] from dedup), or grouped [L, 128]
     table: torch.Tensor
     loss_curve: list[float]
@@ -204,9 +219,11 @@ def table_pad_rows(batch_size: int, behavior_len: int) -> int:
 
 def table_group(update_mode: str, emb_dim: int) -> int:
     """Rows a line of the table the trainer updates in `update_mode`: G =
-    group_size(emb_dim) only for `fused` (scanned.py:470); one row a line
-    (or a row of [V, D]) in every other mode."""
-    return group_size(emb_dim) if update_mode == "fused" else 1
+    group_size(emb_dim) only for `fused` below D = 128 (scanned.py:470);
+    one row a line (or a row of [V, D]) in every other case."""
+    if update_mode != "fused" or emb_dim >= LANES:
+        return 1
+    return group_size(emb_dim)
 
 
 def _check_supported(topt: TableOptConfig, emb_dim: int) -> None:
@@ -216,14 +233,19 @@ def _check_supported(topt: TableOptConfig, emb_dim: int) -> None:
         raise ValueError(f"unknown table optimizer {topt.kind!r}")
     if topt.update_mode not in UPDATE_MODES:
         raise ValueError(f"unknown update_mode {topt.update_mode!r}")
-    if topt.update_mode in PACKED_MODES and emb_dim >= LANES:
-        raise ValueError(f"update_mode={topt.update_mode!r} requires "
-                         "emb_dim < 128 (weights+acc pack into one "
-                         "128-lane row)")
     if topt.rmw_impl not in ("split", "kernel"):
         raise ValueError(f"unknown rmw_impl {topt.rmw_impl!r}")
     if topt.compact_impl not in ("xla", "kernel"):
         raise ValueError(f"unknown compact_impl {topt.compact_impl!r}")
+    if topt.update_mode == "fused" and emb_dim == LANES:
+        if topt.rmw_impl != "split" or topt.compact_impl != "xla":
+            raise ValueError("update_mode='fused' at emb_dim 128 (weights "
+                             "[V, 128], acc apart) takes rmw_impl='split' "
+                             "and compact_impl='xla'")
+    elif topt.update_mode in PACKED_MODES and emb_dim >= LANES:
+        raise ValueError(f"update_mode={topt.update_mode!r} requires "
+                         "emb_dim < 128 (weights+acc pack into one "
+                         "128-lane row), or 128 in 'fused'")
 
 
 def sort_updates(ids_flat: torch.Tensor, g_flat: torch.Tensor,
@@ -258,8 +280,9 @@ def update_rows(ids_flat: torch.Tensor, g_flat: torch.Tensor,
     int32, pairwise distinct below vocab, junk targets past it; rows
     [m, D] f32, each real target's Σg and zeros elsewhere; packed, the
     [m, 128] (Σg | ‖Σg‖² | 0) rows where the front end makes them (K9,
-    and the "xla" compaction at G = 1), else None; overflow, the int32
-    count of unique rows the compaction cap dropped, on the device).
+    and the "xla" compaction at G = 1 below D = 128), else None;
+    overflow, the int32 count of unique rows the compaction cap dropped,
+    on the device).
     ids_flat [n] int32 (-1 = behavior pad, contributes nothing), g_flat
     [n, D] in the compute dtype: the paths that sum in f32 cast it there
     (exact), the "xla" compaction (`compact_xla_rows`) reads bf16 or f32
@@ -281,7 +304,9 @@ def update_rows(ids_flat: torch.Tensor, g_flat: torch.Tensor,
                                                       capr)
         return tgt, packed[:, :d], packed, overflow
     s_ids, order = sort_ids(ids_flat, vocab)
-    if group_size(d) > 1:       # line_stream sums the [m, D] rows by line
+    if d == LANES or group_size(d) > 1:
+        # the [m, D] rows: line_stream sums them by line; at D = 128 the
+        # row update sums ‖Σg‖² itself
         tgt, rows, overflow = compact_xla_rows(ids_flat, s_ids, order,
                                                g_flat, vocab, capr, False)
         return tgt, rows, None, overflow
@@ -318,9 +343,9 @@ def line_stream(tgt: torch.Tensor, rows: torch.Tensor, vocab: int):
                            junk_base=n_lines + m + 1)
 
 
-def _scatter_update(table: torch.Tensor, acc: torch.Tensor,
-                    ids_flat: torch.Tensor, g_flat: torch.Tensor,
-                    topt: TableOptConfig, vocab: int) -> torch.Tensor:
+def _scatter_front(table: torch.Tensor, acc: torch.Tensor,
+                   ids_flat: torch.Tensor, g_flat: torch.Tensor,
+                   topt: TableOptConfig, vocab: int):
     """The unpacked modes (scanned.py:161-187, :367-380), in place on the
     [rows, D] table and its [rows] accumulator, with `scatter_add_rows`
     (ids in the table, each id's adds in stream order) where JAX
@@ -332,20 +357,21 @@ def _scatter_update(table: torch.Tensor, acc: torch.Tensor,
     then acc += ‖g‖² of each row of the stream, and each row scaled by
     lr · rsqrt(acc[id] + eps) (adagrad, after all the stream's acc adds)
     or lr (sgd) is subtracted at its id. Rows of negative ids (behavior
-    pads) are zero. Returns the overflow count, 0, on the device."""
-    with span("goctr.train.update_front"):
-        g = g_flat.float() * (ids_flat >= 0).float()[:, None]
-        if topt.update_mode == "plain":
-            tgt, rows = ids_flat.clamp_min(0), g
-        elif topt.update_mode == "sorted":
-            order = torch.sort(ids_flat, stable=True).indices
-            tgt, rows = ids_flat[order], g[order]
-        else:
-            n0 = ids_flat.shape[0]
-            tgt, rows = segment_rows_dedup(
-                ids_flat, g, vocab,
-                pad_to=-(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP)
-    with span("goctr.train.update_rmw"):
+    pads) are zero. Returns (the write, the overflow count: 0, on the
+    device)."""
+    g = g_flat.float() * (ids_flat >= 0).float()[:, None]
+    if topt.update_mode == "plain":
+        tgt, rows = ids_flat.clamp_min(0), g
+    elif topt.update_mode == "sorted":
+        order = torch.sort(ids_flat, stable=True).indices
+        tgt, rows = ids_flat[order], g[order]
+    else:
+        n0 = ids_flat.shape[0]
+        tgt, rows = segment_rows_dedup(
+            ids_flat, g, vocab,
+            pad_to=-(-n0 // ROWS_PER_STEP) * ROWS_PER_STEP)
+
+    def write():
         if topt.kind == "adagrad":
             scatter_add_rows(acc[:, None], tgt,
                              (rows * rows).sum(1)[:, None])
@@ -354,55 +380,76 @@ def _scatter_update(table: torch.Tensor, acc: torch.Tensor,
         else:
             scale = torch.full(tgt.shape, topt.lr, device=g.device)
         scatter_add_rows(table, tgt, -scale[:, None] * rows)
-        return torch.zeros((), dtype=torch.int32, device=g_flat.device)
+
+    return write, torch.zeros((), dtype=torch.int32, device=g_flat.device)
+
+
+def _update_front(table: torch.Tensor, acc: Optional[torch.Tensor],
+                  ids_flat: torch.Tensor, g_flat: torch.Tensor,
+                  topt: TableOptConfig, vocab: int):
+    """Everything of one batch's update before the row write: (the write,
+    a function of no arguments; the overflow count on the device)."""
+    d = g_flat.shape[1]
+    mode = topt.update_mode
+    if mode not in PACKED_MODES:
+        return _scatter_front(table, acc, ids_flat, g_flat, topt, vocab)
+    kw = dict(lr=topt.lr, d=d, kind=topt.kind, eps=topt.eps)
+    if mode != "fused":
+        # sorted stream, pads = vocab last; compact_cap and rmw_impl do not
+        # apply, as in JAX
+        s_ids, g_s = sort_updates(ids_flat, g_flat.float(), vocab)
+        runs = _cumsum_rows(g_s) if mode == "fused2" else g_s
+        impl = (apply_csum_updates if mode == "fused2"
+                else apply_run_updates)
+        return (lambda: impl(table, s_ids, runs, skip_ge=vocab, **kw),
+                torch.zeros((), dtype=torch.int32, device=g_flat.device))
+    tgt, rows, packed, overflow = update_rows(ids_flat, g_flat, topt, vocab)
+    if d == LANES:          # [V, 128] weights, the accumulator apart
+        return (lambda: apply_wide_row_updates_split(
+            table, acc, tgt, rows, topt.lr, topt.kind, topt.eps,
+            skip_ge=vocab), overflow)
+    kernel = topt.rmw_impl == "kernel"
+    if group_size(d) == 1:
+        gp = packed if packed is not None else pack_grads(rows)
+        impl = apply_row_updates if kernel else apply_row_updates_split
+        return lambda: impl(table, tgt, gp, skip_ge=vocab, **kw), overflow
+    ltgt, lrows = line_stream(tgt, rows, vocab)
+    impl = apply_line_updates if kernel else apply_line_updates_split
+    return (lambda: impl(table, ltgt, lrows, skip_ge=packed_lines(vocab, d),
+                         **kw), overflow)
+
+
+def update_table(table: torch.Tensor, stream, topt: TableOptConfig,
+                 vocab: int, acc: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Apply one batch's row gradients to the table in place, as
+    `topt.update_mode` says (module docstring): fused on packed [V, 128]
+    rows at G = 1 (split, or kernel K5), on grouped [L, 128] lines below
+    (`line_stream`, then split or kernel K6), or at D = 128 on [V, 128]
+    weights with the accumulator `acc` ([V + 1], a spare last) apart
+    (split); fused2 (K7) and runfused (K8) on packed [V, 128] rows;
+    dedup, sorted and plain on the [rows, D] table and its accumulator
+    `acc`. `stream()` gives the update's (ids_flat [n] int32, -1 = pad;
+    g_flat [n, D] in the compute dtype): each path that sums in f32 casts
+    it (exact), the "xla" compaction reads it as it is. Returns the
+    overflow count (0 but with compact_cap > 0 in fused), on the device.
+    Its two stages are the spans goctr.train.update_front, the stream and
+    everything before the row write, and goctr.train.update_rmw, the
+    write."""
+    with span("goctr.train.update_front"):
+        ids_flat, g_flat = stream()
+        write, overflow = _update_front(table, acc, ids_flat, g_flat, topt,
+                                        vocab)
+    with span("goctr.train.update_rmw"):
+        write()
+    return overflow
 
 
 def _table_update(table: torch.Tensor, ids_flat: torch.Tensor,
                   g_flat: torch.Tensor, topt: TableOptConfig, vocab: int,
                   acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Apply one batch's row gradients to the table in place, as
-    `topt.update_mode` says (module docstring): fused on packed [V, 128]
-    rows at G = 1 (split, or kernel K5) or grouped [L, 128] lines below
-    (`line_stream`, then split or kernel K6); fused2 (K7) and runfused
-    (K8) on packed [V, 128] rows; dedup, sorted and plain on the [rows, D]
-    table and its accumulator `acc`. g_flat [n, D] is in the compute
-    dtype; each path that sums in f32 casts it (exact), the "xla"
-    compaction reads it as it is. Returns the overflow count (0 but
-    with compact_cap > 0 in fused), on the device. Its two stages are the
-    spans goctr.train.update_front, everything before the row write, and
-    goctr.train.update_rmw, the write."""
-    d = g_flat.shape[1]
-    mode = topt.update_mode
-    if mode not in PACKED_MODES:
-        return _scatter_update(table, acc, ids_flat, g_flat, topt, vocab)
-    kw = dict(lr=topt.lr, d=d, kind=topt.kind, eps=topt.eps)
-    if mode != "fused":
-        # sorted stream, pads = vocab last; compact_cap and rmw_impl do not
-        # apply, as in JAX
-        with span("goctr.train.update_front"):
-            s_ids, g_s = sort_updates(ids_flat, g_flat.float(), vocab)
-            runs = _cumsum_rows(g_s) if mode == "fused2" else g_s
-        with span("goctr.train.update_rmw"):
-            impl = (apply_csum_updates if mode == "fused2"
-                    else apply_run_updates)
-            impl(table, s_ids, runs, skip_ge=vocab, **kw)
-            return torch.zeros((), dtype=torch.int32, device=g_flat.device)
-    with span("goctr.train.update_front"):
-        tgt, rows, packed, overflow = update_rows(ids_flat, g_flat, topt,
-                                                  vocab)
-        if group_size(d) == 1:
-            gp = packed if packed is not None else pack_grads(rows)
-        else:
-            ltgt, lrows = line_stream(tgt, rows, vocab)
-    with span("goctr.train.update_rmw"):
-        kernel = topt.rmw_impl == "kernel"
-        if group_size(d) == 1:
-            impl = apply_row_updates if kernel else apply_row_updates_split
-            impl(table, tgt, gp, skip_ge=vocab, **kw)
-        else:
-            impl = apply_line_updates if kernel else apply_line_updates_split
-            impl(table, ltgt, lrows, skip_ge=packed_lines(vocab, d), **kw)
-    return overflow
+    """`update_table` of a stream already made."""
+    return update_table(table, lambda: (ids_flat, g_flat), topt, vocab, acc)
 
 
 def trainer_generator(cfg: TrainerConfig, epochs_done: int,
@@ -426,62 +473,60 @@ def epoch_order(gen: torch.Generator, n_pad: int, shuffle: bool,
 def gather_batch_rows(model: SparseCTR, table: torch.Tensor,
                       b_bids: torch.Tensor, b_iids: torch.Tensor,
                       sorted_gather: bool, group: int = 1) -> torch.Tensor:
-    """The rows of one batch's ids, [B·T + B, D] in the compute dtype:
-    behaviors (pads read row 0, masked later) then items, gathered by K1
-    from the trainer's table (`group` rows per line: 1 for [V, 128] rows
-    and [rows, D] tables, G for grouped lines), in raw or ascending-id
-    order."""
-    flat = torch.cat([b_bids.reshape(-1), b_iids])
-    kw = dict(group=group, dim=model.emb_dim, out_dtype=model.compute_dtype)
-    if not sorted_gather:
-        return gather_rows(table, flat.clamp_min(0), **kw)
-    order = torch.sort(flat, stable=True).indices
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=order.device)
-    return gather_rows(table, flat[order].clamp_min(0), **kw)[inv]
+    """SparseCTR's lookup of one batch's ids (`SparseCTR.lookup_rows`)."""
+    return model.lookup_rows(table, {"behavior_ids": b_bids,
+                                     "item_ids": b_iids},
+                             sorted_gather, group)
 
 
 def batch_loss(model: SparseCTR, emb: torch.Tensor, b_prof, b_bids, b_ctx,
                b_y, b_w, generator: Optional[torch.Generator] = None
                ) -> torch.Tensor:
-    """The training loss of one batch over its gathered rows `emb`
-    ([B·T + B, D], as gather_batch_rows returns them)."""
-    bs, t = b_bids.shape
-    nb = bs * t
-    emb_b = emb[:nb].view(bs, t, model.emb_dim)
-    emb_i = emb[nb:]
-    mask = (b_bids >= 0).float()
-    logits = model.apply_pooled(b_prof, emb_b, emb_i, b_ctx, mask,
-                                train=True, generator=generator)
-    return bce_loss(logits, b_y, b_w)
+    """SparseCTR's training loss of one batch over its gathered rows `emb`
+    (`SparseCTR.batch_loss`)."""
+    return model.batch_loss(emb, {"user_profile": b_prof,
+                                  "behavior_ids": b_bids, "ctx": b_ctx,
+                                  "labels": b_y, "weights": b_w},
+                            generator)
 
 
-def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
-               opt_state: list[torch.Tensor], b_prof, b_bids, b_iids, b_ctx,
-               b_y, b_w, topt: TableOptConfig,
+def train_step(model, table: torch.Tensor, solver: Solver,
+               opt_state: list[torch.Tensor], *args,
                generator: Optional[torch.Generator] = None,
                acc: Optional[torch.Tensor] = None):
-    """One step of the scanned trainer on one batch: gather the rows (K1),
-    differentiate the loss with respect to the dense parameters and the
-    gathered rows (K2 forward, K2b backward), take a solver step on the
-    dense parameters in place, and update the table (and, in the modes
-    that keep it apart, the accumulator `acc`) in place. The table is in
-    the layout of topt.update_mode (module docstring): grouped lines of
+    """One step of the scanned trainer on one batch. `args` are the
+    batch's rows, one tensor a name of `model.batch_names` in that order
+    (SparseCTR's: profile, behavior ids, item ids, ctx, labels, row
+    weights; DLRMDCNv2's: dense features, ids, labels, row weights), then
+    the TableOptConfig, and optionally the generator and the accumulator
+    `acc` (by position or by name). Looks the rows up
+    (`model.lookup_rows`: K1 for SparseCTR, K3 for DLRMDCNv2),
+    differentiates the model's loss (`model.batch_loss`)
+    with respect to the dense parameters and the looked-up rows, takes a
+    solver step on the dense parameters in place, and updates the table
+    (and, in the modes that keep it apart, `acc`) in place from the
+    model's id stream (`model.update_stream`). The table is in the layout
+    of topt.update_mode (module docstring): grouped lines of
     `table_group` rows, [V, 128] rows, or [rows, D]. Returns (loss,
     overflow, new solver state) on the device; the host never waits on
     the card here (module docstring). Its stages are the spans (module
-    docstring) goctr.train.lookup, .fwd_bwd, .solver and `_table_update`'s
-    .update_front and .update_rmw; the id stream's cat lies between
-    them."""
+    docstring) goctr.train.lookup, .fwd_bwd, .solver and `update_table`'s
+    .update_front (the id stream included) and .update_rmw."""
+    k = len(model.batch_names)
+    batch = dict(zip(model.batch_names, args[:k]))
+    topt, *rest = args[k:]
+    if rest:
+        generator = rest[0]
+    if len(rest) > 1:
+        acc = rest[1]
     params = model.param_leaves()
     with torch.enable_grad():
         with span("goctr.train.lookup"):
-            emb = gather_batch_rows(
-                model, table, b_bids, b_iids, topt.sorted_gather,
+            emb = model.lookup_rows(
+                table, batch, topt.sorted_gather,
                 table_group(topt.update_mode, model.emb_dim)).requires_grad_()
         with span("goctr.train.fwd_bwd"):
-            loss = batch_loss(model, emb, b_prof, b_bids, b_ctx, b_y, b_w,
-                              generator)
+            loss = model.batch_loss(emb, batch, generator)
             *g_dense, g_emb = torch.autograd.grad(loss, params + [emb])
     with span("goctr.train.solver"):
         updates, opt_state = solver.update(g_dense, opt_state, params)
@@ -489,13 +534,14 @@ def train_step(model: SparseCTR, table: torch.Tensor, solver: Solver,
             for p, u in zip(params, updates):
                 p.add_(u)
     with torch.no_grad():
-        ids_flat = torch.cat([b_bids.reshape(-1), b_iids])
-        overflow = _table_update(table, ids_flat, g_emb, topt,
-                                 model.item_vocab, acc)
+        overflow = update_table(
+            table, lambda: model.update_stream(batch, g_emb), topt,
+            model.item_vocab, acc)
     return loss.detach(), overflow, opt_state
 
 
-def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
+def train_sparse_scanned(model: SparseCTR | DLRMDCNv2,
+                         sample: SparseSample | DLRMSample,
                          cfg: Optional[TrainerConfig] = None,
                          table_opt: Optional[TableOptConfig] = None,
                          resume_from: Optional[TrainedScanned] = None,
@@ -504,8 +550,9 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
     """Single-device scanned training of `model` on `sample`.
 
     Without resume_from the dense parameters and a fresh table are drawn
-    from the run's generator: [V, D] N(0, 0.01²) (then laid out for the
-    update mode), or for a grouped `fused` run at a vocab of
+    from the run's generator by `model.init_params`: SparseCTR's [V, D]
+    N(0, 0.01²), DLRMDCNv2's each feature's rows by its own law (then laid
+    out for the update mode), or for a grouped `fused` run at a vocab of
     GROUPED_RESIDENT_MIN_V or more, grouped lines drawn directly. With
     it, training continues from its dense parameters (copied into
     `model`), table (a [V, D] table with its adagrad accumulator, a dedup
@@ -532,7 +579,8 @@ def train_sparse_scanned(model: SparseCTR, sample: SparseSample,
         return _train(model, sample, cfg, topt, resume_from, dev)
 
 
-def _train(model: SparseCTR, sample: SparseSample, cfg: TrainerConfig,
+def _train(model: SparseCTR | DLRMDCNv2, sample: SparseSample | DLRMSample,
+           cfg: TrainerConfig,
            topt: TableOptConfig, resume_from: Optional[TrainedScanned],
            dev: torch.device) -> TrainedScanned:
     """train_sparse_scanned's call, its options checked, on its resolved
@@ -552,13 +600,10 @@ def _train(model: SparseCTR, sample: SparseSample, cfg: TrainerConfig,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     with span("goctr.train.upload"):
-        d_prof = pad_rows(sample.user_profile.astype(np.float32))
-        d_bids = pad_rows(sample.behavior_ids.astype(np.int32), fill=-1)
-        d_iids = pad_rows(sample.item_ids.astype(np.int32))
-        d_ctx = pad_rows(sample.ctx.astype(np.float32))
-        d_y = pad_rows(np.asarray(sample.labels, np.float32).ravel())
-        d_w = torch.cat([torch.ones(n, device=dev),
-                         torch.zeros(n_pad - n, device=dev)])
+        data = [pad_rows(a, fill)
+                for a, fill in model.trainer_arrays(sample).values()]
+        data.append(torch.cat([torch.ones(n, device=dev),
+                               torch.zeros(n_pad - n, device=dev)]))
 
     # ---- params: dense tower via the solver, table via row updates -------
     with span("goctr.train.resume"):
@@ -568,7 +613,7 @@ def _train(model: SparseCTR, sample: SparseSample, cfg: TrainerConfig,
         mode = topt.update_mode
         g = table_group(mode, d)
         resident = g > 1 and v >= GROUPED_RESIDENT_MIN_V
-        rows = v + (table_pad_rows(bs, sample.behavior_ids.shape[1])
+        rows = v + (table_pad_rows(bs, model.ids_per_example - 1)
                     if mode == "dedup" else 0)
         # the table (and acc) as the trainer updates them, fresh tensors
         if resume_from is not None:
@@ -620,8 +665,7 @@ def _train(model: SparseCTR, sample: SparseSample, cfg: TrainerConfig,
                 with span("goctr.train.step"):
                     with span("goctr.train.batch"):
                         idx = perm[b * bs:(b + 1) * bs]
-                        batch = (d_prof[idx], d_bids[idx], d_iids[idx],
-                                 d_ctx[idx], d_y[idx], d_w[idx])
+                        batch = [x[idx] for x in data]
                     loss, over, opt_state = train_step(
                         model, table, solver, opt_state, *batch, topt, gen,
                         acc)
@@ -655,7 +699,9 @@ def _train(model: SparseCTR, sample: SparseSample, cfg: TrainerConfig,
     with span("goctr.train.return"):
         if resume_from is not None:
             loss_curve = resume_from.loss_curve + loss_curve
-        if mode == "fused" and not resident:  # K1 takes contiguous tables
+        if mode == "fused" and d == LANES:    # drop the spare acc entry
+            acc = acc[:v]
+        elif mode == "fused" and not resident:  # K1 takes contiguous tables
             table, acc = (x.contiguous()
                           for x in unpack_table_grouped(table, v, d))
         elif mode in PACKED_MODES and not resident:     # one row a line
@@ -671,10 +717,15 @@ def _layout_table(mode: str, weights: torch.Tensor, acc: torch.Tensor,
                   vocab: int, rows: int):
     """(table, acc) as the trainer of `mode` updates them, fresh tensors
     made from [V', D] weights and their [V'] accumulator: `fused` packs
-    the first V rows into [V, 128] rows or grouped lines, fused2 and
-    runfused into [V, 128] rows at every D (acc None: it lives in the
-    lines); the other modes keep [rows, D] and [rows], dropping rows past
-    `rows` and zero-filling missing ones (dedup's junk rows)."""
+    the first V rows into [V, 128] rows or grouped lines below D = 128
+    (at D = 128 it keeps the [V, 128] weights and a [V + 1] accumulator,
+    its last entry the junk targets' spare), fused2 and runfused into
+    [V, 128] rows at every D (acc None: it lives in the lines); the other
+    modes keep [rows, D] and [rows], dropping rows past `rows` and
+    zero-filling missing ones (dedup's junk rows)."""
+    if mode == "fused" and weights.shape[1] == LANES:
+        return weights[:vocab].clone(), torch.cat(
+            [acc[:vocab], acc.new_zeros(1)])
     if mode == "fused":
         return pack_table_grouped(weights[:vocab], acc[:vocab]), None
     if mode in PACKED_MODES:

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,6 +44,8 @@ from goctr_tpu_torch.core.dtypes import resolve_device
 from goctr_tpu_torch.core.meshes import MODEL_AXIS, Mesh, row_sharded
 from goctr_tpu_torch.models.base import dropout, glorot
 from goctr_tpu_torch.ops.activations import ACTIVATIONS
+from goctr_tpu_torch.ops.kernels.row_gather import gather_rows
+from goctr_tpu_torch.ops.losses import bce_loss
 from goctr_tpu_torch.ops.kernels.din_attention import DinAttentionPool
 from goctr_tpu_torch.ops.matmul import matmul_f32
 from goctr_tpu_torch.ops.kernels.row_optimizer import (
@@ -161,6 +164,72 @@ class SparseCTR(nn.Module):
         the order of `jax.tree.leaves` of the JAX dense-params dict, which
         the solvers' state follows (optim/optimizers.py)."""
         return [self.att0, *self.bias, *self.mlp]
+
+    # ---- the scanned trainer's step (parallel/scanned.py `train_step`):
+    # the model's arrays, lookup, loss and id stream; DLRMDCNv2
+    # (parallel/dlrm.py) implements the same few members
+
+    # a trainer batch's rows by name, in the order `train_step` takes them
+    batch_names = ("user_profile", "behavior_ids", "item_ids", "ctx",
+                   "labels", "weights")
+
+    @property
+    def ids_per_example(self) -> int:
+        """Table ids of one example: its T behaviors and its item."""
+        return self.behavior_len + 1
+
+    def trainer_arrays(self, sample) -> dict:
+        """{name: (array, fill of the padded tail rows)} of a SparseSample
+        that the scanned trainer uploads, in `batch_names` order (the row
+        weights, "weights", are the trainer's own)."""
+        return {
+            "user_profile": (sample.user_profile.astype(np.float32), 0),
+            "behavior_ids": (sample.behavior_ids.astype(np.int32), -1),
+            "item_ids": (sample.item_ids.astype(np.int32), 0),
+            "ctx": (sample.ctx.astype(np.float32), 0),
+            "labels": (np.asarray(sample.labels, np.float32).ravel(), 0)}
+
+    def lookup_rows(self, table: torch.Tensor, batch: dict,
+                    sorted_gather: bool = False, group: int = 1
+                    ) -> torch.Tensor:
+        """The rows of one batch's ids, [B·T + B, D] in the compute dtype:
+        behaviors (pads read row 0, masked later) then items, gathered by
+        K1 from the trainer's table (`group` rows per line: 1 for
+        [V, 128] rows and [rows, D] tables, G for grouped lines), in raw
+        or ascending-id order."""
+        flat = torch.cat([batch["behavior_ids"].reshape(-1),
+                          batch["item_ids"]])
+        kw = dict(group=group, dim=self.emb_dim,
+                  out_dtype=self.compute_dtype)
+        if not sorted_gather:
+            return gather_rows(table, flat.clamp_min(0), **kw)
+        order = torch.sort(flat, stable=True).indices
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        return gather_rows(table, flat[order].clamp_min(0), **kw)[inv]
+
+    def batch_loss(self, emb: torch.Tensor, batch: dict,
+                   generator: torch.Generator | None = None
+                   ) -> torch.Tensor:
+        """The training loss of one batch over its looked-up rows `emb`
+        ([B·T + B, D], as `lookup_rows` returns them)."""
+        bids = batch["behavior_ids"]
+        bs, t = bids.shape
+        nb = bs * t
+        emb_b = emb[:nb].view(bs, t, self.emb_dim)
+        emb_i = emb[nb:]
+        mask = (bids >= 0).float()
+        logits = self.apply_pooled(batch["user_profile"], emb_b, emb_i,
+                                   batch["ctx"], mask, train=True,
+                                   generator=generator)
+        return bce_loss(logits, batch["labels"], batch["weights"])
+
+    def update_stream(self, batch: dict, g_emb: torch.Tensor):
+        """(ids [B·T + B] int32, -1 = pad; their rows' gradients
+        [B·T + B, D] in the compute dtype): the table update's stream, in
+        `lookup_rows`' order."""
+        return torch.cat([batch["behavior_ids"].reshape(-1),
+                          batch["item_ids"]]), g_emb
 
     def apply_pooled(self, profile: torch.Tensor, behaviors: torch.Tensor,
                      item: torch.Tensor, ctx: torch.Tensor,

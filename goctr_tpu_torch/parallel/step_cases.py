@@ -26,6 +26,10 @@ headline widths a case holds a few GB.
                      `ranker`'s widths
   dedup_flat         parallel/embedding.py `_dedup_flat`, the capped
                      lookup's dedup, at a cap below the unique count
+  scanned dlrm       (with `dlrm`, DLRMDCNv2's arguments) `train_step` of
+                     DLRM-DCNv2 (parallel/dlrm.py): K3 over its bags,
+                     adagrad, fused at D = 128 with the "xla" compaction
+                     and the split update
 
 The ids are zipf-like (a hot tenth of the vocabulary takes half the
 draws) and a quarter of the behavior slots are -1 pads, which the sorted
@@ -204,6 +208,39 @@ def _ranker(device, widths: dict, batch: int, name: str) -> Callable:
     return step
 
 
+def _dlrm(device, dlrm_kw: dict, batch: int) -> Callable:
+    from goctr_tpu_torch.models.trainer import (
+        TrainerConfig, make_trainer_solver)
+    from goctr_tpu_torch.parallel import scanned as sc
+    from goctr_tpu_torch.parallel.dlrm import DLRMDCNv2
+    from goctr_tpu_torch.parallel.table_opt import TableOptConfig
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = DLRMDCNv2(**dlrm_kw, compute_dtype=torch.bfloat16,
+                      device=device)
+    v = model.item_vocab
+    table, acc = sc._layout_table("fused", model.init_params(gen),
+                                  torch.zeros(v, device=device), v, v)
+    cap = -(-batch * model.ids_per_example // 2 // 1024) * 1024
+    topt = TableOptConfig(kind="adagrad", lr=0.05, compact_cap=cap)
+    solver = make_trainer_solver(TrainerConfig(solver="adagrad", l2=0.0))
+    state = solver.init(model.param_leaves())
+    rng = np.random.default_rng(0)
+    ids = np.concatenate([_ids(rng, (batch, h), r) for h, r in
+                          zip(model.hotness, model.rows)], 1)
+    rows = [torch.from_numpy(a).to(device) for a in (
+        rng.random((batch, model.dense_dim), dtype=np.float32), ids,
+        (rng.random(batch) < 0.5).astype(np.float32),
+        np.ones(batch, np.float32))]
+
+    def step():
+        nonlocal state
+        _, _, state = sc.train_step(model, table, solver, state, *rows,
+                                    topt, gen, acc)
+
+    return step
+
+
 def _dedup(device, model_kw: dict, batch: int) -> Callable:
     from goctr_tpu_torch.parallel.embedding import _dedup_flat
 
@@ -217,11 +254,13 @@ def _dedup(device, model_kw: dict, batch: int) -> Callable:
 
 
 def step_cases(device, model: dict, grouped: dict, ranker: dict,
-               batch: int) -> list[tuple[str, Callable[[], Callable]]]:
+               batch: int, dlrm: dict | None = None
+               ) -> list[tuple[str, Callable[[], Callable]]]:
     """(name, build) of every case (module docstring): `model` and
     `grouped` are SparseCTR widths (`grouped` with emb_dim < 64, so that
     fused keeps lines of G > 1 rows), `ranker` DIN's (u_profile_dim,
-    behavior_len, behavior_dim, i_feature_dim, c_feature_dim)."""
+    behavior_len, behavior_dim, i_feature_dim, c_feature_dim), `dlrm`
+    DLRMDCNv2's arguments (emb_dim 128), or None for no DLRM case."""
     cap = -(-batch * (model["behavior_len"] + 1) // 4 // 1024) * 1024
     scanned = [
         ("fused split", model, {}),
@@ -248,4 +287,6 @@ def step_cases(device, model: dict, grouped: dict, ranker: dict,
              lambda name=name: _ranker(device, ranker, batch, name))
             for name in ("mlp", "youtube", "din xla", "din pallas")]
     out += [("dedup_flat", lambda: _dedup(device, model, batch))]
+    if dlrm is not None:
+        out += [("scanned dlrm", lambda: _dlrm(device, dlrm, batch))]
     return out

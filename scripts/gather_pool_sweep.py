@@ -277,7 +277,8 @@ def main() -> int:
 
                 def call(i, fn=fn, outs=outs):
                     code = fn(table.data_ptr(), sets[i].data_ptr(),
-                              outs[i].data_ptr(), b, k, v, d, mean, stream)
+                              outs[i].data_ptr(), b, k, v, d, mean, None, 1,
+                              stream)
                     if code:
                         raise RuntimeError(f"{name} {var}: launch failed "
                                            f"{code}")

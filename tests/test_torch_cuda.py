@@ -521,7 +521,7 @@ def _check_xla_compaction(ids, g, vocab, capr):
     within rtol 1e-6 (f64 then rounded once, against PyTorch's f32 sum),
     the lanes past it 0; a second call bit for bit; one launch a call."""
     d = g.shape[1]
-    packed = tro.group_size(d) == 1
+    packed = tro.group_size(d) == 1 and d < tro.LANES   # 128: unpacked
     s_ids, order = kx.sort_ids(ids, vocab)
     before = kx.compact_xla_rows.launches
     tgt, rows, over = kx.compact_xla_rows(ids, s_ids, order, g, vocab, capr,
@@ -567,6 +567,71 @@ def test_compact_xla_kernel_on_other_routes(cuda, route, dtype):
         g_off.copy_(g)
         g = g_off
     _check_xla_compaction(ids.to(cuda), g, vocab, capr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", list(COMPACTION_CASES))
+def test_compact_xla_kernel_unpacked_at_d128(cuda, name, dtype):
+    """D = 128, where the weights and the accumulator are kept apart
+    (DLRM's rows): the kernel's unpacked [capr, 128] run sums against its
+    plain version; the packed layout is refused there."""
+    ids, g, vocab, capr = compaction_case(name, 128, dtype)
+    _check_xla_compaction(ids.to(cuda), g.to(cuda), vocab, capr)
+    s_ids, order = kx.sort_ids(ids.to(cuda), vocab)
+    with pytest.raises(ValueError, match="packed"):
+        kx.compact_xla_rows(ids.to(cuda), s_ids, order, g.to(cuda), vocab,
+                            capr, True)
+
+
+def _bag_inputs(b, d, dev, hotness, seed=3):
+    """A table and [B, K] ids of bags of `hotness` (a zero-width bag
+    among them), pads, a fully padded row and an id past the table."""
+    rng = np.random.default_rng(seed)
+    v, k = 5000, sum(hotness)
+    table = rng.normal(0, 0.1, (v, d)).astype(np.float32)
+    ids = np.minimum(rng.zipf(1.2, (b, k)) - 1, v - 1).astype(np.int32)
+    ids[rng.random((b, k)) < 0.1] = -1
+    ids[1] = -1
+    ids[2, 0] = v + 5
+    off = np.concatenate([[0], np.cumsum(hotness)]).astype(np.int32)
+    return (torch.from_numpy(table).to(dev), torch.from_numpy(ids).to(dev),
+            torch.from_numpy(off).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(4096, 128), (777, 64), (300, 10),
+                                 (64, 264)])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_gather_pool_kernel_with_offsets_matches_plain(cuda, combiner, b, d):
+    """K3 with column offsets (MLPerf DLRM's 26 bags, 214 ids a row, and a
+    zero-width bag) against its plain version, in one launch; offsets
+    [0, K] give the one-bag pool bit for bit; other offsets (a
+    control) do not match."""
+    from goctr_tpu_torch.parallel.dlrm import MLPERF_HOTNESS
+
+    hot = MLPERF_HOTNESS[:5] + (0,) + MLPERF_HOTNESS[5:]
+    table, ids, off = _bag_inputs(b, d, cuda, hot)
+    before = k3.fused_gather_pool.launches
+    got = k3.fused_gather_pool(table, ids, combiner, off)
+    want = k3.fused_gather_pool_plain(table, ids, combiner, off)
+    torch.cuda.synchronize()
+    assert k3.fused_gather_pool.launches == before + 1
+    assert tuple(got.shape) == (b, len(hot), d)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert not got[:, 5].any() and not got[1].any()
+    torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                               atol=1e-6, rtol=1e-5)
+    one = torch.tensor([0, ids.shape[1]], dtype=torch.int32, device=cuda)
+    assert torch.equal(
+        bits(k3.fused_gather_pool(table, ids, combiner, one)[:, 0]),
+        bits(k3.fused_gather_pool(table, ids, combiner)))
+    shifted = off.clone()
+    shifted[1:-1] += 1
+    other = k3.fused_gather_pool(table, ids, combiner, shifted)
+    assert not torch.allclose(torch.nan_to_num(other),
+                              torch.nan_to_num(want), atol=1e-6, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -1147,8 +1212,11 @@ SYNC_MODEL = dict(item_vocab=50_000, emb_dim=64, u_profile_dim=8, ctx_dim=4,
                   behavior_len=8, hidden=(64, 32), activation="relu")
 SYNC_RANKER = dict(u_profile_dim=8, behavior_len=4, behavior_dim=16,
                    i_feature_dim=16, c_feature_dim=5)
+SYNC_DLRM = dict(hotness=(3, 2, 100, 1), rows=(50_000, 10, 20_000, 3),
+                 bottom=(64, 128), cross_layers=2, cross_rank=32,
+                 top=(64, 32))
 SYNC_CASES = dict(step_cases("cuda", SYNC_MODEL, dict(SYNC_MODEL, emb_dim=16),
-                             SYNC_RANKER, 4096))
+                             SYNC_RANKER, 4096, dlrm=SYNC_DLRM))
 
 
 @pytest.mark.cuda

@@ -617,7 +617,10 @@ def test_dedup_checkpoints_cross_packages(tmp_path):
 # ---------------------------------------------------------------- errors --
 def test_trainer_errors_match_jax(start64):
     """An unknown mode and the packed modes at emb_dim >= 128 raise the
-    JAX trainer's ValueErrors."""
+    JAX trainer's ValueErrors; the port's `fused` takes emb_dim 128 (the
+    weights [V, 128] and the accumulator apart) with the split update and
+    the "xla" compaction, and refuses it with K5, which needs the
+    accumulator's lane."""
     arrays = _arrays()
     for mode in ("scatter", "fused3"):
         jcfg, pcfg, _, _ = _cfgs(epochs=1)
@@ -636,10 +639,13 @@ def test_trainer_errors_match_jax(start64):
             jsc.train_sparse_scanned(JaxSparseCTR(**_model_cfg(128)),
                                      JaxSample(**arrays), jcfg,
                                      JaxTopt(update_mode=mode))
-        with pytest.raises(ValueError, match="emb_dim < 128"):
+        port_topt = TableOptConfig(update_mode=mode)
+        if mode == "fused":
+            port_topt.rmw_impl = "kernel"
+        with pytest.raises(ValueError, match="emb_dim < 128" if mode !=
+                           "fused" else "rmw_impl='split'"):
             train_sparse_scanned(SparseCTR(**_model_cfg(128), device="cpu"),
-                                 SparseSample(**arrays), pcfg,
-                                 TableOptConfig(update_mode=mode),
+                                 SparseSample(**arrays), pcfg, port_topt,
                                  device="cpu")
 
 
